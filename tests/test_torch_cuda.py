@@ -71,3 +71,125 @@ def test_device_mosaic_uses_kernel_on_cuda(dev):
     on_cpu.add_batch(tiles.cpu(), rows, cols)
     for a, b in zip(on_card.finalize(), on_cpu.finalize()):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the training kernels: bn_stats (forward and backward) and flip_scale ---
+
+# (N, C, H, W): the training BatchNorm shapes of the xresnet34 U-Net at
+# batch 16 × 512², then ragged ones (C = 3 and 1, odd N·H·W, H·W not a
+# multiple of the 16-byte load)
+BN_SHAPES = [(16, 64, 128, 128), (16, 64, 256, 256), (16, 128, 64, 64),
+             (16, 128, 128, 128), (16, 256, 32, 32), (16, 256, 128, 128),
+             (16, 512, 16, 16), (3, 3, 37, 41), (5, 1, 17, 13), (2, 7, 3, 5)]
+
+
+def _bn_inputs(shape, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return x, dy
+
+
+@pytest.mark.parametrize("shape", BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_stats_kernels_match_float64_and_are_bit_stable(dev, shape, dtype):
+    """Within 1e-6 of the float64 sums relative to Σ|x|, Σx², Σ|dy| and
+    Σ|dy·x̂|; two launches bit-identical; one launch counted per call."""
+    from unet_tpu_torch.ops import bn
+
+    x, dy = _bn_inputs(shape, dtype, dev)
+    before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+    s1, s2 = bn.bn_sum_sumsq(x), bn.bn_sum_sumsq(x)
+    n = x.numel() // shape[1]
+    mean = s1[0] / n
+    inv = torch.rsqrt(torch.clamp(s1[1] / n - mean * mean, min=0) + 1e-5)
+    b1, b2 = bn.bn_bwd_sums(dy, x, mean, inv), bn.bn_bwd_sums(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    assert (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(s1, s2) and torch.equal(b1, b2)
+    dims = (0, 2, 3)
+    x64, dy64 = x.double(), dy.double()
+    xhat = (x64 - mean.double().view(1, -1, 1, 1)) * inv.double().view(1, -1, 1, 1)
+    for got, want, scale in ((s1[0], x64.sum(dims), x64.abs().sum(dims)),
+                             (s1[1], (x64 * x64).sum(dims), (x64 * x64).sum(dims)),
+                             (b1[0], dy64.sum(dims), dy64.abs().sum(dims)),
+                             (b1[1], (dy64 * xhat).sum(dims), (dy64 * xhat).abs().sum(dims))):
+        assert bool(((got.double() - want).abs() <= 1e-6 * scale).all())
+
+
+def test_bn_stats_rejects_bad_input(dev):
+    from unet_tpu_torch.ops import bn
+
+    x, dy = _bn_inputs((2, 4, 8, 8), torch.float32, dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bn.bn_sum_sumsq(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.bn_sum_sumsq(x.transpose(2, 3))
+    mean, inv = torch.zeros(4, device=dev), torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="dy"):
+        bn.bn_bwd_sums(dy.bfloat16(), x, mean, inv)
+    with pytest.raises(ValueError, match="mean"):
+        bn.bn_bwd_sums(dy, x, mean.double(), inv)
+
+
+def test_train_batch_norm_on_cuda_runs_the_kernels(dev):
+    """The module's forward and backward launch one kernel each and agree
+    with the plain reductions (float32: rtol 1e-5)."""
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import bn
+
+    x, dy = _bn_inputs((4, 16, 20, 24), torch.float32, dev, seed=1)
+    out = {}
+    for name, red in (("kernel", bn.KERNEL_REDUCTIONS), ("plain", bn.PLAIN_REDUCTIONS)):
+        m = BatchNorm(16).to(dev).train()
+        m.reductions = red
+        xi = x.clone().requires_grad_(True)
+        before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+        y = m(xi)
+        (y * dy).sum().backward()
+        launched = (bn.bn_sum_sumsq.launches - before[0], bn.bn_bwd_sums.launches - before[1])
+        out[name] = (y, xi.grad, m.weight.grad, m.bias.grad, m.running_var, launched)
+    assert out["kernel"][-1] == (1, 1) and out["plain"][-1] == (0, 0)
+    for a, b in zip(out["kernel"][:-1], out["plain"][:-1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("img_dtype", [torch.uint8, torch.uint16, torch.int16, torch.float32])
+@pytest.mark.parametrize("mask_dtype", [None, torch.uint8, torch.int32, torch.int64])
+def test_flip_scale_bit_equal_to_plain(dev, img_dtype, mask_dtype):
+    from unet_tpu_torch.ops import aug
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, c, h, w = 8, 3, 37, 300
+    if img_dtype == torch.float32:
+        img = torch.randn((b, c, h, w), generator=g, device=dev) * 100
+    else:
+        hi = 256 if img_dtype == torch.uint8 else 30000
+        img = torch.randint(0, hi, (b, c, h, w), generator=g, device=dev).to(img_dtype)
+    msk = None if mask_dtype is None else \
+        torch.randint(0, 5, (b, h, w), generator=g, device=dev).to(mask_dtype)
+    hf = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.bool)
+    vf = torch.tensor([0, 0, 1, 1, 0, 1, 1, 0], dtype=torch.bool)
+    scales = torch.linspace(0.001, 2.0, b)
+    before = aug.fused_flip_scale.launches
+    ki, km = aug.fused_flip_scale(img, msk, hf, vf, scales)
+    pi, pm = aug.fused_flip_scale_reference(img, msk, hf, vf, scales)
+    torch.cuda.synchronize()
+    assert aug.fused_flip_scale.launches == before + 1
+    assert ki.dtype == torch.float32 and torch.equal(ki, pi)
+    assert (km is None and pm is None) or (km.dtype == msk.dtype and torch.equal(km, pm))
+
+
+def test_flip_scale_rejects_bad_input(dev):
+    from unet_tpu_torch.ops import aug
+
+    img = torch.zeros((2, 3, 8, 8), dtype=torch.uint8, device=dev)
+    f, s = torch.zeros(2, dtype=torch.bool), torch.ones(2)
+    with pytest.raises(ValueError, match="uint8/uint16/int16/float32"):
+        aug.fused_flip_scale(img.half(), None, f, f, s)
+    with pytest.raises(ValueError, match="masks"):
+        aug.fused_flip_scale(img, torch.zeros((2, 8, 9), dtype=torch.uint8, device=dev),
+                             f, f, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        aug.fused_flip_scale(img.transpose(2, 3), None, f, f, s)

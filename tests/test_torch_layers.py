@@ -122,8 +122,14 @@ def test_batch_norm_eval(dtype):
 
 
 def test_batch_norm_train_mode_is_a_later_slice():
-    with pytest.raises(NotImplementedError):
-        tl.BatchNorm(3).train()(torch.zeros(1, 3, 2, 2))
+    """The training slice brought train mode: it normalizes with the batch
+    statistics and moves the running ones (held against flax in
+    tests/test_torch_bn.py)."""
+    bn = tl.BatchNorm(3).train()
+    x = torch.from_numpy(_rand(15, (4, 3, 5, 5)) * 3 + 1)
+    y = bn(x)
+    torch.testing.assert_close(y.mean(dim=(0, 2, 3)), torch.zeros(3), atol=1e-5, rtol=0)
+    torch.testing.assert_close(bn.running_mean, 0.1 * x.mean(dim=(0, 2, 3)))
 
 
 def test_folded_stem_conv_layer():

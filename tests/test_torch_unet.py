@@ -103,5 +103,6 @@ def test_unported_topologies_raise():
     tm = build_unet("xresnet18", dtype=torch.float32)
     with pytest.raises(ValueError, match="divisible by 4"):
         tm(torch.zeros(1, 3, 66, 66))
-    with pytest.raises(NotImplementedError):
-        tm.train()(torch.zeros(1, 3, 64, 64))
+    # training mode is ported: it runs, and folds the logits for the loss
+    out = tm.train()(torch.rand(2, 3, 64, 64), fold_logits=True)
+    assert out.shape == (2, 8, 32, 32)

@@ -1,9 +1,13 @@
-"""CLI front-end: ``python -m unet_tpu_torch serve <bundle> scene.tif out.tif``.
+"""CLI front-end: ``python -m unet_tpu_torch <train|serve> ...``.
 
-The ``serve`` subcommand takes the arguments of ``unet_tpu serve``, plus
+    python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
+    python -m unet_tpu_torch serve models/run1 scene.tif out.tif
+
+Each subcommand takes the arguments of its ``unet_tpu`` counterpart, plus
 ``--device`` (default ``cuda``) and ``--stats-json`` (write the run's
-timings and kernel launch counts to a JSON file). It computes in bf16.
-The other subcommands come with later slices.
+timings and kernel launch counts to a JSON file). Both compute in bf16.
+Arguments whose feature is not ported yet exit with "not yet ported"
+instead of being ignored. The other subcommands come with later slices.
 """
 
 from __future__ import annotations
@@ -18,8 +22,39 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="unet_tpu_torch",
-        description="aerial segmentation serving on NVIDIA GPUs (PyTorch/CUDA)")
+        description="aerial segmentation training and serving on NVIDIA GPUs "
+                    "(PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    tr = sub.add_parser("train", help="train a model on a tile dataset")
+    tr.add_argument("data_path")
+    tr.add_argument("--model-path", required=True)
+    tr.add_argument("--description", default="model")
+    tr.add_argument("--codes", nargs="+", default=["Background", "Class_1"])
+    tr.add_argument("--arch", default="xresnet34")
+    tr.add_argument("--batch-size", type=int, default=4)
+    tr.add_argument("--epochs", type=int, default=15)
+    tr.add_argument("--lr", type=float, default=1e-4)
+    tr.add_argument("--regression", action="store_true", help="not yet ported")
+    tr.add_argument("--class-weights", default="even")
+    tr.add_argument("--self-attention", action="store_true", help="not yet ported")
+    tr.add_argument("--existing-model", default=None, help="not yet ported")
+    tr.add_argument("--lr-finder", default=None, help="not yet ported")
+    tr.add_argument("--pretrained-weights", default=None, help="not yet ported")
+    tr.add_argument("--tpu-opt", action=argparse.BooleanOptionalAction, default=True,
+                    help="the tpu_opt topology (--no-tpu-opt: not yet ported)")
+    tr.add_argument("--grad-accum", type=int, default=1, help="> 1: not yet ported")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--reference-quirks", action="store_true", help="not yet ported")
+    tr.add_argument("--profile-dir", default=None, help="not yet ported")
+    tr.add_argument("--coordinator", default=None, help="not yet ported")
+    tr.add_argument("--num-processes", type=int, default=None, help="not yet ported")
+    tr.add_argument("--process-id", type=int, default=None, help="not yet ported")
+    tr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu only when asked)")
+    tr.add_argument("--stats-json", default=None,
+                    help="write steps, seconds, tiles/s, step ms and kernel "
+                         "launch counts here")
 
     sv = sub.add_parser("serve", help="predict whole GeoTIFFs directly (no tile files)")
     sv.add_argument("model")
@@ -65,7 +100,77 @@ def cli(argv=None) -> int:
         return 2
 
 
+def train_kernel_launches() -> dict:
+    """Launch count of each CUDA kernel of the train path in this process."""
+    from .ops.aug import fused_flip_scale
+    from .ops.bn import bn_bwd_sums, bn_sum_sumsq
+
+    return {"bn_sum_sumsq": bn_sum_sumsq.launches,
+            "bn_bwd_sums": bn_bwd_sums.launches,
+            "flip_scale": fused_flip_scale.launches}
+
+
+def _device_name(device) -> str:
+    import torch
+
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
 def _dispatch(args) -> int:
+    return _train(args) if args.command == "train" else _serve(args)
+
+
+UNPORTED_TRAIN_ARGS = (
+    ("regression", "--regression"), ("self_attention", "--self-attention"),
+    ("existing_model", "--existing-model"), ("lr_finder", "--lr-finder"),
+    ("pretrained_weights", "--pretrained-weights"),
+    ("reference_quirks", "--reference-quirks"), ("profile_dir", "--profile-dir"),
+    ("coordinator", "--coordinator"), ("num_processes", "--num-processes"),
+    ("process_id", "--process-id"))
+
+
+def _train(args) -> int:
+    from .train.loop import Trainer, TrainerConfig, train_model
+
+    for attr, flag in UNPORTED_TRAIN_ARGS:
+        if getattr(args, attr) is not None and getattr(args, attr) is not False:
+            raise NotImplementedError(f"{flag} is not yet ported")
+    if not args.tpu_opt:
+        raise NotImplementedError("--no-tpu-opt (the parity topology) is not yet ported")
+    if args.grad_accum > 1:
+        raise NotImplementedError("--grad-accum > 1 is not yet ported")
+    cw = args.class_weights
+    if cw not in ("even", "weighted"):
+        cw = json.loads(cw)
+    cfg = TrainerConfig(data_path=args.data_path, model_path=args.model_path,
+                        description=args.description, codes=args.codes,
+                        arch=args.arch, batch_size=args.batch_size,
+                        epochs=args.epochs, lr=args.lr, class_weights=cw,
+                        seed=args.seed, device=args.device)
+    trainer = Trainer(cfg)
+    t0 = time.perf_counter()
+    out = train_model(cfg, trainer)
+    seconds = time.perf_counter() - t0
+    print(f"Model bundle exported to {out}")
+    if args.stats_json:
+        step_ms = trainer.step_ms()
+        stats = {
+            "device": str(trainer.device),
+            "device_name": _device_name(trainer.device),
+            "steps": len(step_ms),
+            "batch_size": cfg.batch_size,
+            "seconds": seconds,
+            "train_tiles_per_s": len(step_ms) * cfg.batch_size / seconds,
+            "step_ms": step_ms,
+            "history": trainer.history,
+            "launches": train_kernel_launches(),
+        }
+        with open(args.stats_json, "w") as f:
+            json.dump(stats, f, indent=1)
+    return 0
+
+
+def _serve(args) -> int:
     import torch
 
     from .ops.blend import blend_and_count
@@ -106,8 +211,7 @@ def _dispatch(args) -> int:
             n_batches += -(-n // args.batch_size)
         stats = {
             "device": str(predictor.device),
-            "device_name": (torch.cuda.get_device_name(predictor.device)
-                            if predictor.device.type == "cuda" else "cpu"),
+            "device_name": _device_name(predictor.device),
             "windows": n_windows,
             "batches": n_batches,
             "seconds": seconds,

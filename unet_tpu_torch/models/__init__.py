@@ -1,4 +1,4 @@
-"""The U-Net and its layers (eval mode)."""
+"""The U-Net and its layers."""
 
 from .unet import (TPU_OPT_TOPOLOGY_VERSION, DynamicUnet,  # noqa: F401
                    build_unet, init_weights)

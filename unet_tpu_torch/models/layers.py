@@ -1,4 +1,4 @@
-"""Building-block layers of the U-Net, eval mode, NCHW.
+"""Building-block layers of the U-Net, NCHW.
 
 Counterparts of ``unet_tpu/models/layers.py`` for the tpu_opt topology:
 ConvLayer (conv → [BatchNorm] → [ReLU] with torch-style symmetric
@@ -9,8 +9,9 @@ flax's ``dtype=`` does. Attribute names match the flax module names so a
 state_dict key maps one to one onto a flax parameter path
 (``train/checkpoint.py``).
 
-Training-mode BatchNorm (flax momentum 0.9 = torch 0.1, biased running
-variance) comes with the training slice; in train mode BatchNorm raises.
+Training-mode BatchNorm follows flax's (momentum 0.9, biased running
+variance), not ``nn.BatchNorm2d`` (its running variance is the unbiased
+one).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.bn import KERNEL_REDUCTIONS, BatchNormTrain
 
 
 def torch_pad(ks: int) -> int:
@@ -60,22 +63,37 @@ def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` parameters (scale/bias → weight/bias, mean/var
-    → running_mean/running_var), eval mode only."""
+    → running_mean/running_var).
+
+    Training mode normalizes with the batch statistics through
+    ``ops.bn.BatchNormTrain`` (the ``bn_stats`` CUDA kernels for CUDA
+    tensors, their plain versions for CPU tensors; ``reductions =
+    PLAIN_REDUCTIONS`` runs the plain versions on the card too) and updates
+    the running averages as flax does: ``ra = m·ra + (1 − m)·batch`` with
+    momentum m = 0.9 and the biased batch variance."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.reductions = KERNEL_REDUCTIONS
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm: later slice (call .eval())")
-        return batch_norm(x, self.running_mean, self.running_var,
-                          self.weight, self.bias, self.eps)
+        if not self.training:
+            return batch_norm(x, self.running_mean, self.running_var,
+                              self.weight, self.bias, self.eps)
+        y, mean, var = BatchNormTrain.apply(x, self.weight, self.bias,
+                                            self.eps, self.reductions)
+        m = self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
 
 
 class ConvLayer(nn.Module):

@@ -1,4 +1,4 @@
-"""The tpu_opt U-Net over an XResNet body, eval mode, NCHW.
+"""The tpu_opt U-Net over an XResNet body, NCHW.
 
 Counterpart of ``unet_tpu/models/unet.py``'s ``DynamicUnet`` with
 ``tpu_opt=True``: folded stem, k2-s2 transposed-conv upsampling, the slim
@@ -90,7 +90,8 @@ class DynamicUnet(nn.Module):
     """U-Net over an XResNet body, tpu_opt topology. ``forward`` returns
     float32 logits (B, n_out, H, W), or with ``fold_logits=True`` the
     sub-pixel head's pre-shuffle logits (B, n_out·4, H/2, W/2) in (class,
-    dy, dx) channel order."""
+    dy, dx) channel order (the training loss takes these). In training mode
+    every BatchNorm normalizes with its batch statistics."""
 
     def __init__(self, arch: str = "xresnet34", n_out: int = 2, c_in: int = 3,
                  self_attention: bool = False, last_cross: bool = True,
@@ -126,8 +127,6 @@ class DynamicUnet(nn.Module):
         self.head = Conv2d(y_c, n_out * 4, 1, bias=True)
 
     def forward(self, x: torch.Tensor, fold_logits: bool = False) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("training mode: later slice (call .eval())")
         orig = x.to(self.dtype)
         feats, skips = self.encoder(orig)
         y = F.relu(self.mid_bn(feats))

@@ -1,1 +1,1 @@
-"""Model bundles (the training loop comes with a later slice)."""
+"""Model bundles, the loss, metrics, optimizer and the training loop."""
