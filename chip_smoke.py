@@ -4,10 +4,15 @@
 
 Phases (any failure raises and the script exits nonzero), in this order:
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build every CUDA kernel from the repo sources (one nvcc each, all
-     started together, cold);
+  2. build every CUDA kernel and the native tile decoder from the repo
+     sources (one nvcc for each kernel source and one g++, all started
+     together, cold);
   3. blend_count vs its plain version on random tiles: bit-equal, and both
-     timed;
+     timed; offset_copy bit-equal to its plain version at every offset of a
+     (64, 128) source and at the probe's own (16, 128), offset 1, an
+     out-of-range offset refused, and the kernel timed beside its plain
+     version, an ``index_select`` and an empty kernel (the launch latency
+     that bounds it);
   4. serve: a seeded random-init xresnet34 tpu_opt bundle (3 classes, 512²
      tiles, bf16) serves a 4096×4096×3 GeoTIFF through
      ``python -m unet_tpu_torch serve`` in a subprocess; the class map is
@@ -24,13 +29,22 @@ Phases (any failure raises and the script exits nonzero), in this order:
      ragged shapes (within 1e-6 of the float64 sums, relative to Σ|x|,
      Σx², Σ|dy| and Σ|dy·x̂|; two launches bit-identical), and flip_scale on
      16 × 3 × 512² uint8 tiles with uint8 masks and mixed flags (bit-equal);
-  7. train through ``python -m unet_tpu_torch train`` in a subprocess: the
+     then ``doctor --kernels``, the path that runs offset_copy: in this
+     process with every launch count set to 0 (each of the five kernels
+     launched once, all checks ok), then ``python -m unet_tpu_torch doctor
+     --kernels`` in a subprocess (exit 0, its report printed);
+  7. the native decoder on the training tile set below: bit-equal to the
+     Python codec on every tile and on a few tiles rewritten with LZW,
+     deflate, PackBits and JPEG (JPEG segments decode natively in both, as
+     in the JAX package; the pure-Python JPEG decoder within 2 levels), and
+     the decode ms of a 16-tile batch each way; then train through ``python -m unet_tpu_torch train`` in a subprocess: the
      tpu_opt xresnet34 U-Net, random init from seed 0, 2 epochs over a
      seeded synthetic 512² tile set (64 train + 16 valid tiles, 3 classes
      that are a function of the image), batch 16, bf16; the history must
      be finite and every train-step kernel launched as many times as the
      steps say; then the exported bundle serves the 4096² scene of phase 4
-     through ``python -m unet_tpu_torch serve``;
+     through ``python -m unet_tpu_torch serve``; the loader's decode path
+     and first-batch times come back in the stats file;
   8. train in this process: step milliseconds and tiles/s, the per-step
      launch counts (43 / 43 / 1), and one step with the kernels against one
      with their plain versions from the same state, batch and flags (loss
@@ -70,7 +84,6 @@ BATCH = 16
 N_OUT = 3
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-KERNELS = ("blend_count", "bn_stats", "flip_scale")
 # (C, H = W, count) of the 43 training BatchNorms of the xresnet34 tpu_opt
 # U-Net at 512² tiles; each runs at batch 16
 BN_SITES = [(64, 128, 7), (64, 256, 1), (128, 64, 10), (128, 128, 2),
@@ -82,7 +95,8 @@ PROFILED_STEPS = 3
 GRAD_REL_L2 = 5e-2    # kernel vs plain step, per parameter tensor (bf16 convs)
 GRAD_FLOOR = 1e-2     # ... relative to at least this share of the gradients' RMS
 LATE_UNIT = {"blend_count": "batch of 16 tiles", "bn_sum_sumsq": "train step",
-             "bn_bwd_sums": "train step", "flip_scale": "train batch"}
+             "bn_bwd_sums": "train step", "flip_scale": "train batch",
+             "offset_copy": "call"}
 
 
 def log(msg: str) -> None:
@@ -456,6 +470,12 @@ def train_cli_phase(tmp: Path, tiles: Path) -> dict:
                       f"{r['valid_loss']:.4f} dice {r['dice_multi']:.4f}"
                       for r in st["history"])
           + f"; launches {st['launches']}")
+    loader = st["loader"]
+    if loader["path"] not in ("native", "python"):
+        raise AssertionError(f"train loader reports path {loader['path']}")
+    print(f"train CLI loader: decode path {loader['path']}; first batch "
+          + ", ".join(f"{k} {'not timed' if v is None else f'{v:.1f} ms'}"
+                      for k, v in loader["first_batch_ms"].items()))
     return {"bundle": bundle, "launches": st["launches"], "stats": st}
 
 
@@ -542,14 +562,173 @@ def train_inprocess_phase(tiles: Path, tmp: Path) -> dict:
         raise
 
 
+def offset_copy_phase(dev, late: list) -> dict:
+    """offset_copy bit-equal to its plain version at every offset of a
+    (64, 128) source and at the probe's (16, 128), offset 1; an
+    out-of-range offset must raise. Timed (CUDA events) beside its plain
+    version, one ``index_select`` and an empty kernel, and queued in
+    ``late`` for its device time."""
+    from unet_tpu_torch.ops.probe import ROWS, COLS, empty_kernel, offset_copy, \
+        offset_copy_reference
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    src = torch.randn((64, COLS), generator=g, device=dev)
+    probe_src = torch.arange(16 * COLS, dtype=torch.float32, device=dev).view(16, COLS)
+    err = 0.0
+    for s, o in [(src, o) for o in range(64 // ROWS)] + [(probe_src, 1)]:
+        off = torch.tensor([o], dtype=torch.int32, device=dev)
+        got, want = offset_copy(s, off), offset_copy_reference(s, off)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"offset_copy differs from its plain version at "
+                                 f"offset {o} of {s.shape[0]} rows")
+    for o in (-1, 64 // ROWS):
+        try:
+            offset_copy(src, torch.tensor([o], dtype=torch.int32, device=dev))
+        except ValueError:
+            continue
+        raise AssertionError(f"offset_copy took offset {o} of 64 rows")
+    off = torch.tensor([1], dtype=torch.int32, device=dev)
+    if not torch.equal(offset_copy(probe_src, off), probe_src[ROWS:2 * ROWS]):
+        raise AssertionError("offset_copy of the probe's case is not rows 8-15")
+    idx = off.long()
+    fns = {"ms": lambda: offset_copy(probe_src, off),
+           "plain_ms": lambda: offset_copy_reference(probe_src, off),
+           "library_ms": lambda: probe_src.view(-1, ROWS, COLS).index_select(0, idx)}
+    late.append({"kernel": "offset_copy", "count": 1, "fns": fns})
+    out = {k: cuda_ms(fn) for k, fn in fns.items()}
+    out["empty_ms"] = cuda_ms(lambda: empty_kernel(dev))
+    out["bound_ms"] = 2 * ROWS * COLS * 4 / HBM_BYTES_PER_S * 1e3
+    out["err"] = err
+    print(f"offset_copy: bit-equal at every offset of (64, {COLS}) and at the probe's "
+          f"(16, {COLS}) offset 1, out-of-range offsets refused; CUDA events per call: "
+          f"kernel {out['ms'] * 1e3:.2f} us (status read back included), plain "
+          f"{out['plain_ms'] * 1e3:.2f} us, index_select {out['library_ms'] * 1e3:.2f} us, "
+          f"empty kernel {out['empty_ms'] * 1e3:.2f} us; bytes bound "
+          f"{out['bound_ms'] * 1e6:.2f} ns")
+    return out
+
+
+def doctor_phase() -> dict:
+    """``doctor --kernels``, the path that runs offset_copy: in this process
+    with every launch count at 0 (each kernel must launch exactly once and
+    every check pass), then through the CLI in a subprocess (exit 0)."""
+    from unet_tpu_torch.ops import aug, blend, bn, probe
+    from unet_tpu_torch.utils.doctor import run_doctor
+
+    counters = {"blend_count": blend.blend_and_count, "bn_sum_sumsq": bn.bn_sum_sumsq,
+                "bn_bwd_sums": bn.bn_bwd_sums, "flip_scale": aug.fused_flip_scale,
+                "offset_copy": probe.offset_copy}
+    for f in counters.values():
+        f.launches = 0
+    results = run_doctor(kernels=True)
+    launches = {k: f.launches for k, f in counters.items()}
+    if not all(ok for ok, _ in results.values()):
+        raise AssertionError(f"doctor --kernels in process: {results}")
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError(f"doctor --kernels launched {launches}, expected 1 each")
+    proc = subprocess.run([sys.executable, "-m", "unet_tpu_torch", "doctor", "--kernels"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    print("python -m unet_tpu_torch doctor --kernels:\n" + proc.stdout.rstrip())
+    if proc.returncode != 0:
+        log(proc.stderr)
+        raise RuntimeError(f"doctor --kernels exited {proc.returncode}")
+    print(f"doctor --kernels: every check ok; launches in process {launches}")
+    return launches
+
+
+def pure_python_read(path: Path) -> np.ndarray:
+    """A TIFF read by the port's codec with every native hook off."""
+    from unet_tpu_torch import native
+    from unet_tpu_torch.geo import tiff
+
+    available = native.available
+    native.available = lambda: False
+    try:
+        return tiff.read(str(path))[0]
+    finally:
+        native.available = available
+
+
+def native_phase(tmp: Path, tiles: Path) -> dict:
+    """The native decoder against the Python codec on every tile of the
+    training set and on tiles rewritten with LZW, deflate, PackBits and
+    JPEG; the decode ms of a 16-tile batch each way."""
+    from unet_tpu_torch import native
+    from unet_tpu_torch.data.dataset import TileDataset
+    from unet_tpu_torch.data.loader import TileLoader
+    from unet_tpu_torch.geo import tiff
+
+    ds = TileDataset(tiles)
+    files = ds.train_files + ds.valid_files
+    batches = [files[i:i + BATCH] for i in range(0, len(files), BATCH)]
+    ld = TileLoader(ds, files, BATCH)
+    try:
+        for paths in batches:
+            ni, nm, _ = ld.make_batch_native(paths)
+            pi, pm, _ = ld.make_batch_python(paths)
+            if not (ni.dtype == pi.dtype and nm.dtype == pm.dtype
+                    and np.array_equal(ni, pi) and np.array_equal(nm, pm)):
+                raise AssertionError(f"native and Python batches differ at {paths[0]}")
+        ms = {"native": [], "python": []}
+        for _ in range(3):
+            for paths in batches:
+                for way, fn in (("native", ld.make_batch_native), ("python", ld.make_batch_python)):
+                    t0 = time.perf_counter()
+                    fn(paths)
+                    ms[way].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ld.close()
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"native decoder: bit-equal to the Python codec on all {len(files)} tiles "
+          f"(images and masks); decode of a {BATCH}-tile batch of 3 x {PATCH}² uint8 "
+          f"(uncompressed) + masks, median of {len(ms['native'])}: native "
+          f"{med['native']:.2f} ms, python {med['python']:.2f} ms")
+    codec_dir = tmp / "codecs"
+    codec_dir.mkdir()
+    arrays = [tiff.read(str(f))[0] for f in files[:4]]
+    per_codec = {}
+    for compress, kw in (("lzw", {}), ("deflate", {"predictor": True}),
+                         ("packbits", {}), ("jpeg", {"quality": 90})):
+        paths = []
+        for i, a in enumerate(arrays):
+            p = codec_dir / f"{compress}_{i}.tif"
+            tiff.write(str(p), a, compress=compress, tile=(256, 256) if i % 2 else None, **kw)
+            paths.append(p)
+        t0 = time.perf_counter()
+        raw = native.decode_batch_raw(paths, PATCH, PATCH, 3, np.uint8)
+        t_native = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        reads = [tiff.read(str(p))[0] for p in paths]
+        t_python = (time.perf_counter() - t0) * 1e3
+        for i, p in enumerate(paths):
+            got = np.moveaxis(raw[i], 2, 0)
+            pure = pure_python_read(p)
+            if not np.array_equal(got, reads[i]):
+                raise AssertionError(f"native decode of {p.name} differs from the codec")
+            gap = int(np.abs(got.astype(np.int16) - pure.astype(np.int16)).max())
+            if gap > (2 if compress == "jpeg" else 0) or (
+                    compress != "jpeg" and not np.array_equal(got, arrays[i])):
+                raise AssertionError(f"{p.name}: native vs pure-Python codec off by {gap}")
+        per_codec[compress] = (t_native, t_python)
+    print("native decoder: bit-equal to the codec on 4 tiles each of LZW, deflate + "
+          "predictor, PackBits and JPEG (strips and 256² tiles; pure-Python JPEG "
+          "within 2 levels); ms for 4 tiles native / python: "
+          + ", ".join(f"{c} {a:.1f} / {b:.1f}" for c, (a, b) in per_codec.items()))
+    return {"batch_ms": med, "codec_ms": per_codec}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
         return 1
+    from unet_tpu_torch import native
     from unet_tpu_torch.geo import read_raster, write_raster
     from unet_tpu_torch.ops import _build
     from unet_tpu_torch.ops.blend import (DeviceMosaic, blend_and_count,
                                           blend_and_count_reference)
+    from unet_tpu_torch.ops.probe import SOURCES as KERNELS
     from unet_tpu_torch.predict.merge import finalize_mosaic
     from unet_tpu_torch.predict.predict import Predictor, predict_raster
     from unet_tpu_torch.tiling.windows import generate_windows
@@ -564,12 +743,18 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     # 2. build from source, cold even where a library is cached, one nvcc
-    # process for each kernel, all started together
+    # process for each kernel source and one g++ for the native decoder,
+    # all started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        for f in [pool.submit(_build.build, k, force=True, verbose=True) for k in KERNELS]:
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        futs = [pool.submit(_build.build, k, force=True, verbose=True) for k in KERNELS]
+        futs.append(pool.submit(native.build, force=True))
+        for f in futs:
             f.result()
-    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    if not native.available():
+        raise RuntimeError(f"native decoder: {native.build_error()}")
+    print(f"built {', '.join(KERNELS)} and the native decoder "
+          f"({native.library_path().name}) in {time.perf_counter() - t0:.1f} s")
 
     # 3. kernel vs plain on random tiles at overlapping and edge offsets
     rng = np.random.default_rng(SEED)
@@ -595,8 +780,9 @@ def main() -> int:
     p3 = cuda_ms(lambda: blend_and_count_reference(mp, cp, tiles3, rows3, cols3))
     print(f"blend_count random {N3}x{N_OUT}x{PATCH}² on {H3}x{W3}: bit-equal; "
           f"kernel {k3 * 1e3:.1f} us, plain {p3 * 1e3:.1f} us")
-
     late: list = []  # cases whose device time is taken under torch.profiler, last
+    oc = offset_copy_phase(dev, late)
+
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         tmp = Path(tmp)
         # 4. serve through the CLI in a subprocess; its launch counts start
@@ -708,11 +894,14 @@ def main() -> int:
         # 6. the training kernels against their plain versions
         bn_t = bn_phase(dev, late)
         flip_t = flip_phase(dev, late)
+        doctor_launches = doctor_phase()
 
-        # 7. train through the CLI, then serve the exported bundle
+        # 7. the native decoder on the tile set, then train through the
+        # CLI and serve the exported bundle
         t0 = time.perf_counter()
         tiles = make_tiles(tmp / "tiles")
         log(f"tile set in {time.perf_counter() - t0:.1f} s")
+        native_phase(tmp, tiles)
         trained = train_cli_phase(tmp, tiles)
         cmd = [sys.executable, "-m", "unet_tpu_torch", "serve", str(trained["bundle"]),
                str(tmp / "scene.tif"), str(tmp / "trained.tif"),
@@ -775,6 +964,10 @@ def main() -> int:
               + "; ".join(f"{ms:.2f} ms {n}x {k[:60]}" for k, ms, n in top_kernels(prof)))
         trainer.close()
         dev_t = device_times(late)
+        from unet_tpu_torch.ops.probe import empty_kernel
+
+        empty_dev_ms = device_ms(lambda: empty_kernel(dev), "the empty kernel")
+        print(f"empty kernel device time (torch.profiler): {empty_dev_ms * 1e3:.2f} us")
 
     cuda_src = "unet_tpu_torch/ops/csrc/"
     train_launches = trained["launches"]
@@ -791,6 +984,10 @@ def main() -> int:
         ("flip_scale", "flip_scale.cu", "unet_tpu/ops/pallas_aug.py:126",
          train_launches["flip_scale"], flip_t["err"], flip_t["ms"], flip_t["bound_ms"],
          flip_t["bound_by"], {"per": "batch of 16 x 3 x 512² uint8 + masks"}),
+        ("offset_copy", "offset_copy.cu", "unet_tpu/ops/probe.py:136",
+         doctor_launches["offset_copy"], oc["err"], oc["ms"], oc["bound_ms"], "bytes",
+         {"per": "call, (16, 128) source at offset 1, status read back",
+          "launch_bound_ms": oc["empty_ms"], "launch_bound_device_ms": empty_dev_ms}),
     ]
     kernels = {"kernels": [
         {"name": kname, "route": "cuda", "source": cuda_src + src, "replaces": replaces,

@@ -193,3 +193,45 @@ def test_flip_scale_rejects_bad_input(dev):
                              f, f, s)
     with pytest.raises(ValueError, match="contiguous"):
         aug.fused_flip_scale(img.transpose(2, 3), None, f, f, s)
+
+
+# --- offset_copy and the capability check ---
+
+
+@pytest.mark.parametrize("rows", [16, 64])
+def test_offset_copy_bit_equal_to_plain_at_every_offset(dev, rows):
+    from unet_tpu_torch.ops import probe
+
+    src = torch.randn((rows, 128), generator=torch.Generator(device=dev).manual_seed(rows),
+                      device=dev)
+    before = probe.offset_copy.launches
+    for o in range(rows // 8):
+        off = torch.tensor([o], dtype=torch.int32, device=dev)
+        got = probe.offset_copy(src, off)
+        torch.cuda.synchronize()
+        assert torch.equal(got, probe.offset_copy_reference(src, off))
+    assert probe.offset_copy.launches == before + rows // 8
+
+
+def test_offset_copy_rejects_bad_input(dev):
+    from unet_tpu_torch.ops import probe
+
+    src = torch.zeros((16, 128), device=dev)
+    for o in (-1, 2, 1000):
+        with pytest.raises(ValueError, match="out of range"):
+            probe.offset_copy(src, torch.tensor([o], dtype=torch.int32, device=dev))
+    off = torch.tensor([0], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        probe.offset_copy(src, off.long())
+    with pytest.raises(ValueError, match="float32"):
+        probe.offset_copy(src.double(), off)
+    with pytest.raises(ValueError, match="aligned"):
+        probe.offset_copy(torch.zeros(17 * 128 + 1, device=dev)[1:].view(17, 128), off)
+
+
+def test_capability_check_all_ok(dev):
+    from unet_tpu_torch.ops import probe
+
+    results = probe.capability_check()
+    assert set(results) == set(probe.CHECKS)
+    assert all(ok for ok, _ in results.values()), results

@@ -74,6 +74,14 @@ def test_cli_train_on_cpu_exports_the_bundle(trained):
     assert (b / "run.msgpack").read_bytes() == (b / "best-model.msgpack").read_bytes()
 
 
+def test_cli_train_stats_report_the_loader_path(trained):
+    """The train loader decoded its first batch both ways and kept one."""
+    loader = trained["stats"]["loader"]
+    assert loader["path"] in ("native", "python")
+    assert set(loader["first_batch_ms"]) == {"native", "python"}
+    assert all(v > 0 for v in loader["first_batch_ms"].values())
+
+
 def test_history_csv_has_the_jax_columns(trained):
     with open(trained["bundle"] / "run_history.csv") as f:
         rows = list(csv.DictReader(f))

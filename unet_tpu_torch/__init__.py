@@ -2,10 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its module
 layout and names so each counterpart is easy to find, and imports neither
-JAX nor anything of ``unet_tpu``. This slice serves whole GeoTIFFs through
-the tpu_opt U-Net: ``python -m unet_tpu_torch serve <bundle> scene.tif
-out.tif``. The overlap-blend mosaic accumulates in a hand-written CUDA
-kernel (``ops/csrc/blend_count.cu``).
+JAX nor anything of ``unet_tpu``. It trains and serves the tpu_opt U-Net
+(``python -m unet_tpu_torch train``, ``serve``) and checks a machine
+(``doctor``), with hand-written CUDA kernels under ``ops/csrc/`` and the
+native tile decoder under ``native/``.
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and never
 fall back to the CPU unasked.
@@ -13,4 +13,5 @@ fall back to the CPU unasked.
 
 from .utils.device import resolve_device  # noqa: F401
 
+__version__ = "0.1.0"
 __all__ = ["resolve_device"]

@@ -1,13 +1,19 @@
-"""CLI front-end: ``python -m unet_tpu_torch <train|serve> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <train|serve|doctor> ...``.
 
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch serve models/run1 scene.tif out.tif
+    python -m unet_tpu_torch doctor [--kernels]
 
-Each subcommand takes the arguments of its ``unet_tpu`` counterpart, plus
-``--device`` (default ``cuda``) and ``--stats-json`` (write the run's
-timings and kernel launch counts to a JSON file). Both compute in bf16.
-Arguments whose feature is not ported yet exit with "not yet ported"
-instead of being ignored. The other subcommands come with later slices.
+Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
+``train`` and ``serve`` also take ``--device`` (default ``cuda``) and
+``--stats-json`` (write the run's timings, kernel launch counts and, for
+``train``, the loader's decode path to a JSON file); both compute in bf16.
+``doctor`` checks whether this machine is ready: versions, the CUDA
+device, the nvcc toolchain, the native decoder and, with ``--kernels``
+(also spelled ``--pallas``, as in ``unet_tpu``), every CUDA kernel against
+its plain version; it exits 0 only when every check passes. Arguments
+whose feature is not ported yet exit with "not yet ported" instead of
+being ignored. The other subcommands come with later slices.
 """
 
 from __future__ import annotations
@@ -85,6 +91,12 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--stats-json", default=None,
                     help="write windows, batches, seconds, tiles/s, forward "
                          "ms per batch and kernel launch counts here")
+
+    dr = sub.add_parser("doctor", help="diagnose the environment: versions, CUDA "
+                                       "device, nvcc, native decoder, kernels")
+    dr.add_argument("--kernels", "--pallas", dest="kernels", action="store_true",
+                    help="also build every CUDA kernel and check it against its "
+                         "plain version on the card")
     return ap
 
 
@@ -117,6 +129,11 @@ def _device_name(device) -> str:
 
 
 def _dispatch(args) -> int:
+    if args.command == "doctor":
+        from .utils.doctor import run_doctor
+
+        results = run_doctor(kernels=args.kernels)
+        return 0 if all(ok for ok, _ in results.values()) else 1
     return _train(args) if args.command == "train" else _serve(args)
 
 
@@ -164,6 +181,8 @@ def _train(args) -> int:
             "step_ms": step_ms,
             "history": trainer.history,
             "launches": train_kernel_launches(),
+            "loader": {"path": trainer.train_loader.path,
+                       "first_batch_ms": trainer.train_loader.first_batch_ms},
         }
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1)

@@ -617,6 +617,13 @@ def _transform_from_tags(tags: Dict[int, object]) -> Optional[GeoTransform]:
 # --- segment decoding -----------------------------------------------------------
 
 
+def _native_codecs():
+    """The C++ codec module, or None (pure-Python fallback)."""
+    from .. import native
+
+    return native if native.available() else None
+
+
 def _decompress(chunk: bytes, compression: int, expected: Optional[int] = None) -> bytes:
     if compression == COMP_NONE:
         return chunk
@@ -628,8 +635,18 @@ def _decompress(chunk: bytes, compression: int, expected: Optional[int] = None) 
         except zlib.error as e:
             raise ValueError(f"Corrupt TIFF: bad deflate stream ({e})") from e
     if compression == COMP_LZW:
+        nat = _native_codecs() if expected else None
+        if nat is not None:
+            out = nat.lzw_decode(chunk, expected)
+            if out is not None:
+                return out
         return lzw_decode(chunk)
     if compression == COMP_PACKBITS:
+        nat = _native_codecs() if expected else None
+        if nat is not None:
+            out = nat.packbits_decode(chunk, expected)
+            if out is not None:
+                return out
         return packbits_decode(chunk, expected)
     name = _COMP_NAMES.get(compression, str(compression))
     raise ValueError(f"Unsupported TIFF compression: {name} (code {compression})")
@@ -783,10 +800,15 @@ def _decode_chunk(chunk: bytes, compression: int, rows: int, width: int,
         tb = bytes(tables) if isinstance(tables, (bytes, bytearray)) else None
         photometric = int(tags.get(TAG_PHOTOMETRIC, 1))
         ct = (photometric == 6) if photometric in (2, 6) else None
-        from . import jpeg as jpeg_codec
+        from .. import native as native_mod
 
-        arr = jpeg_codec.decode(bytes(chunk), tables=tb,
-                                color_transform=ct)
+        arr = native_mod.jpeg_decode(bytes(chunk), tables=tb,
+                                     color_transform=ct)
+        if arr is None:  # no native library / a stream it does not take
+            from . import jpeg as jpeg_codec
+
+            arr = jpeg_codec.decode(bytes(chunk), tables=tb,
+                                    color_transform=ct)
         if arr.shape[2] < channels:
             raise ValueError(
                 f"JPEG segment has {arr.shape[2]} components, expected {channels}")
@@ -1000,12 +1022,30 @@ def _apply_predictor(hwc: np.ndarray) -> np.ndarray:
     return out
 
 
+def _lzw_encode_fast(b: bytes) -> bytes:
+    nat = _native_codecs()
+    if nat is not None:
+        out = nat.lzw_encode(b)
+        if out is not None:
+            return out
+    return lzw_encode(b)
+
+
+def _packbits_encode_fast(b: bytes) -> bytes:
+    nat = _native_codecs()
+    if nat is not None:
+        out = nat.packbits_encode(b)
+        if out is not None:
+            return out
+    return packbits_encode(b)
+
+
 _WRITE_COMPRESSORS = {
     None: (COMP_NONE, lambda b: b),
     "deflate": (COMP_DEFLATE, lambda b: zlib.compress(b, 6)),
     "zlib": (COMP_DEFLATE, lambda b: zlib.compress(b, 6)),
-    "lzw": (COMP_LZW, lzw_encode),
-    "packbits": (COMP_PACKBITS, packbits_encode),
+    "lzw": (COMP_LZW, _lzw_encode_fast),
+    "packbits": (COMP_PACKBITS, _packbits_encode_fast),
 }
 
 

@@ -1,0 +1,120 @@
+"""``unet_tpu_torch doctor`` — is this machine ready to train and serve?
+
+Counterpart of ``unet_tpu/utils/doctor.py``: each check runs isolated, so
+one that raises is reported as FAIL and cannot take the others down, and
+the report has the same format. The checks:
+
+* ``versions`` — the port, torch, CUDA, numpy and Python;
+* ``devices`` — the CUDA devices with their memory and compute
+  capability, which must be 9.0: every kernel is built for ``sm_90a``
+  only. Without a card the check fails with "no CUDA device", and nothing
+  runs on the CPU instead;
+* ``toolchain`` (the counterpart of the compile-cache check) — nvcc's path
+  and version, and the kernel build directory with its cached libraries;
+* ``native decoder`` — its ABI version, or the build error;
+* ``kernels`` (opt-in, as ``--pallas`` is) — ``ops.probe.capability_check``:
+  every CUDA kernel built, launched once and compared with its plain
+  version.
+
+``versions`` and ``devices`` are blocking. The JAX package's ``mesh``
+check waits for the port's data parallelism. Its ``optional deps`` check
+has no counterpart: the port's one optional module, PIL, only reads TIFF
+features outside the codec, and a machine without it is still ready.
+"""
+
+from __future__ import annotations
+
+import platform
+import subprocess
+from typing import Callable, Dict, List, Tuple
+
+CAPABILITY = (9, 0)  # sm_90a, the only target the kernels are built for
+
+
+def _check(fn: Callable[[], Tuple[bool, str]]) -> Tuple[bool, str]:
+    try:
+        return fn()
+    except Exception as e:  # diagnostics never crash
+        return False, f"{type(e).__name__}: {e}"
+
+
+def _versions() -> Tuple[bool, str]:
+    import numpy as np
+    import torch
+
+    import unet_tpu_torch
+
+    return True, (f"unet_tpu_torch {unet_tpu_torch.__version__}, torch "
+                  f"{torch.__version__}, CUDA {torch.version.cuda}, numpy "
+                  f"{np.__version__}, python {platform.python_version()}")
+
+
+def _devices() -> Tuple[bool, str]:
+    import torch
+
+    if not torch.cuda.is_available():
+        return False, ("no CUDA device (torch.cuda.is_available() is False): not "
+                       "ready; nothing runs on the CPU instead")
+    parts, ok = [], True
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        cap = (p.major, p.minor)
+        ok &= cap == CAPABILITY
+        parts.append(f"{i}: {p.name}, {p.total_memory / 2**30:.1f} GiB, compute "
+                     f"capability {p.major}.{p.minor}"
+                     + ("" if cap == CAPABILITY else " (the kernels need 9.0)"))
+    return ok, f"{torch.cuda.device_count()} CUDA device(s): " + "; ".join(parts)
+
+
+def _toolchain() -> Tuple[bool, str]:
+    from ..ops import _build
+
+    nvcc = _build.nvcc_path()
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    cached = len(list(_build.BUILD_DIR.glob("*.so"))) if _build.BUILD_DIR.is_dir() else 0
+    return True, (f"{nvcc} ({out[-1] if out else 'version unknown'}); kernels build "
+                  f"into {_build.BUILD_DIR} ({cached} libraries cached)")
+
+
+def _native() -> Tuple[bool, str]:
+    from .. import native
+
+    if not native.available():
+        return False, f"native decoder unavailable: {native.build_error()}"
+    return True, (f"{native.library_path().name} ABI v"
+                  f"{native.get_lib().unet_native_version()} (batch TIFF decode, "
+                  "LZW/PackBits/deflate, JPEG incl. progressive)")
+
+
+def _kernels() -> Tuple[bool, str]:
+    from ..ops.probe import capability_check
+
+    results = capability_check()
+    return (all(ok for ok, _ in results.values()),
+            "; ".join(f"{name} {'ok' if ok else 'FAIL'} ({detail})"
+                      for name, (ok, detail) in results.items()))
+
+
+def run_doctor(kernels: bool = False) -> Dict[str, Tuple[bool, str]]:
+    """Run every check; print a report; return {name: (ok, detail)}.
+
+    ``kernels=True`` also builds and checks every CUDA kernel on the card
+    (a few seconds of nvcc, hence opt-in)."""
+    checks: List[Tuple[str, Callable]] = [
+        ("versions", _versions),
+        ("devices", _devices),
+        ("toolchain", _toolchain),
+        ("native decoder", _native),
+    ]
+    if kernels:
+        checks.append(("kernels", _kernels))
+    results: Dict[str, Tuple[bool, str]] = {}
+    for name, fn in checks:
+        ok, detail = _check(fn)
+        results[name] = (ok, detail)
+        print(f"  {'ok ' if ok else 'FAIL'}  {name:<16} {detail}")
+    hard = [n for n in ("versions", "devices") if not results[n][0]]
+    print("doctor: " + ("all checks passed" if all(ok for ok, _ in results.values())
+                        else f"issues found{' (blocking: ' + ', '.join(hard) + ')' if hard else ''}"))
+    return results
