@@ -131,3 +131,83 @@ def test_more_than_flips_is_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
         taug.augment_batch(torch.from_numpy(img), torch.from_numpy(msk), cfg,
                            torch.Generator())
+
+
+# --- the host side of a flip_scale launch: parameter blocks and the plan ---
+
+
+def _unpack(block, n):
+    """(hflip, vflip, scales) of the first ``n`` samples of a parameter block."""
+    block = np.frombuffer(block, np.uint8)
+    words = aug.MAX_B // 8
+    bits = np.unpackbits(block[:2 * words], bitorder="little").reshape(2, -1)
+    return bits[0, :n].astype(bool), bits[1, :n].astype(bool), \
+        block[2 * words:].view("<f4")[:n]
+
+
+@pytest.mark.parametrize("b", [1, 16, 33, 512, 600, 1100])
+def test_pack_flip_params_round_trips(b):
+    """Bits and scales come back from each block as given; blocks cover
+    the batch in runs of MAX_B samples; every unused bit and scale is 0."""
+    rng = np.random.default_rng(b)
+    hf, vf = rng.random(b) < 0.5, rng.random(b) < 0.3
+    scales = rng.uniform(1e-3, 2, b).astype(np.float32)
+    blocks = aug.pack_flip_params(hf, vf, scales)
+    assert [(s, e) for s, e, _ in blocks] == \
+        [(s, min(s + aug.MAX_B, b)) for s in range(0, b, aug.MAX_B)]
+    for start, stop, block in blocks:
+        assert isinstance(block, bytes) and len(block) == aug.PARAM_BYTES
+        h, v, s = _unpack(block, aug.MAX_B)
+        n = stop - start
+        np.testing.assert_array_equal(h[:n], hf[start:stop])
+        np.testing.assert_array_equal(v[:n], vf[start:stop])
+        np.testing.assert_array_equal(s[:n], scales[start:stop])
+        assert not h[n:].any() and not v[n:].any() and not s[n:].any()
+
+
+def test_pack_flip_params_bit_words_are_little_endian_uint32():
+    """Sample i's flag is bit i % 32 of uint32 word i // 32, as the kernel
+    reads ``hbits[b >> 5] >> (b & 31)``."""
+    hf = np.zeros(70, bool)
+    hf[[0, 33, 69]] = True
+    block = np.frombuffer(aug.pack_flip_params(hf, ~hf, np.ones(70, np.float32))[0][2], np.uint8)
+    h_words = block[:aug.MAX_B // 8].view("<u4")
+    v_words = block[aug.MAX_B // 8:aug.MAX_B // 4].view("<u4")
+    assert list(h_words[:3]) == [1, 2, 1 << 5] and not h_words[3:].any()
+    assert list(v_words[:3]) == [0xFFFFFFFE, 0xFFFFFFFD, 0x1F & ~(1 << 5)]
+
+
+def test_pack_flip_params_takes_the_scales_as_float32():
+    """Scales given in float64 are rounded to float32 once, as the plain
+    version's ``scales.to(float32)`` rounds them."""
+    s64 = np.array([1 / 255, 1 / 3, 0.1])
+    block = aug.pack_flip_params(np.zeros(3, bool), np.zeros(3, bool), s64)[0][2]
+    np.testing.assert_array_equal(_unpack(block, 3)[2],
+                                  torch.tensor(s64).to(torch.float32).numpy())
+
+
+def test_pack_flip_params_takes_torch_lists_as_the_wrapper_passes_them():
+    """The wrapper packs ``tolist()`` of its flag and scale tensors."""
+    hf, vf = torch.arange(40) % 3 == 0, torch.arange(40) % 5 == 1
+    s = torch.linspace(0.001, 2.0, 40)
+    want = aug.pack_flip_params(hf.numpy(), vf.numpy(), s.numpy())
+    assert aug.pack_flip_params(hf.tolist(), vf.tolist(), s.tolist()) == want
+
+
+# (b, c, h, w, with_mask, sms, blocks): 16 x (3 + 1) x 512 rows of 4
+# 128-element chunks stop at BLOCKS_PER_SM blocks a multiprocessor and the
+# warps loop; small batches get one warp per item, counted at one element a
+# group whatever path the launcher takes
+@pytest.mark.parametrize("b,c,h,w,with_mask,sms,blocks", [
+    (16, 3, 512, 512, True, 132, 132 * 8), (16, 3, 512, 512, True, 114, 114 * 8),
+    (16, 3, 512, 300, True, 132, 132 * 8), (2, 3, 8, 8, False, 132, 6),
+    (1, 1, 1, 1, False, 132, 1), (1, 1, 1, 129, True, 132, 1),
+    (4, 3, 9, 64, True, 1, 8), (3, 2, 5, 300, False, 132, 12)])
+def test_launch_blocks_sizes_the_grid_from_the_items_and_the_sms(b, c, h, w, with_mask, sms,
+                                                                 blocks):
+    assert aug.launch_blocks(b, c, h, w, with_mask, sms) == blocks
+
+
+def test_launch_blocks_refuses_more_items_than_the_kernel_counts():
+    with pytest.raises(ValueError, match="32-bit"):
+        aug.launch_blocks(aug.MAX_B, 4096, 2048, 4, False, 132)

@@ -155,30 +155,113 @@ def test_train_batch_norm_on_cuda_runs_the_kernels(dev):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("img_dtype", [torch.uint8, torch.uint16, torch.int16, torch.float32])
-@pytest.mark.parametrize("mask_dtype", [None, torch.uint8, torch.int32, torch.int64])
-def test_flip_scale_bit_equal_to_plain(dev, img_dtype, mask_dtype):
-    from unet_tpu_torch.ops import aug
+FLIP_IMAGE_DTYPES = [torch.uint8, torch.uint16, torch.int16, torch.float32]
+FLIP_MASK_DTYPES = [None, torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32,
+                    torch.uint32, torch.int64]
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32}
 
-    g = torch.Generator(device=dev).manual_seed(2)
-    b, c, h, w = 8, 3, 37, 300
+
+def _flip_case(dev, img_dtype, mask_dtype, b, h, w, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
     if img_dtype == torch.float32:
-        img = torch.randn((b, c, h, w), generator=g, device=dev) * 100
+        img = torch.randn((b, 3, h, w), generator=g, device=dev) * 100
     else:
         hi = 256 if img_dtype == torch.uint8 else 30000
-        img = torch.randint(0, hi, (b, c, h, w), generator=g, device=dev).to(img_dtype)
+        img = torch.randint(0, hi, (b, 3, h, w), generator=g, device=dev).to(img_dtype)
     msk = None if mask_dtype is None else \
         torch.randint(0, 5, (b, h, w), generator=g, device=dev).to(mask_dtype)
-    hf = torch.tensor([0, 1, 0, 1, 1, 0, 1, 0], dtype=torch.bool)
-    vf = torch.tensor([0, 0, 1, 1, 0, 1, 1, 0], dtype=torch.bool)
-    scales = torch.linspace(0.001, 2.0, b)
+    hf = torch.arange(b) % 2 == 1
+    vf = torch.arange(b) % 3 == 1
+    return img, msk, hf, vf, torch.linspace(0.001, 2.0, b)
+
+
+def _bits_equal(a, b):
+    """Bit-equality, through a signed view where PyTorch lacks the dtype's ops."""
+    return a.dtype == b.dtype and torch.equal(a.view(_SIGNED.get(a.dtype, a.dtype)),
+                                              b.view(_SIGNED.get(b.dtype, b.dtype)))
+
+
+def _flip_check(args, launches=1):
+    from unet_tpu_torch.ops import aug
+
     before = aug.fused_flip_scale.launches
-    ki, km = aug.fused_flip_scale(img, msk, hf, vf, scales)
-    pi, pm = aug.fused_flip_scale_reference(img, msk, hf, vf, scales)
+    ki, km = aug.fused_flip_scale(*args)
+    pi, pm = aug.fused_flip_scale_reference(*args)
     torch.cuda.synchronize()
-    assert aug.fused_flip_scale.launches == before + 1
+    assert aug.fused_flip_scale.launches == before + launches
     assert ki.dtype == torch.float32 and torch.equal(ki, pi)
-    assert (km is None and pm is None) or (km.dtype == msk.dtype and torch.equal(km, pm))
+    assert (km is None and pm is None) or _bits_equal(km, pm)
+
+
+def _device_op_names(fn, tries=3):
+    """Names of the device operations (kernels, copies, sets) of one
+    ``fn()`` call, by torch.profiler after a warm call; a trace that comes
+    back empty (CUPTI now and then delivers none) is taken again."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
+# word-path widths (W % 4 == 0; 300 ends in a partial chunk), then the
+# element path's
+@pytest.mark.parametrize("w", [512, 128, 64, 4, 300, 301, 17, 1])
+@pytest.mark.parametrize("img_dtype", FLIP_IMAGE_DTYPES)
+@pytest.mark.parametrize("mask_dtype", FLIP_MASK_DTYPES)
+def test_flip_scale_bit_equal_to_plain(dev, img_dtype, mask_dtype, w):
+    _flip_check(_flip_case(dev, img_dtype, mask_dtype, 8, 37, w))
+
+
+@pytest.mark.parametrize("img_dtype", FLIP_IMAGE_DTYPES)
+def test_flip_scale_unaligned_views_take_the_element_path(dev, img_dtype):
+    """Images and masks whose data_ptr() is not 16-byte aligned, at a width
+    the word path would take."""
+    img, msk, hf, vf, s = _flip_case(dev, img_dtype, torch.uint8, 4, 9, 64)
+    img_u = torch.empty(img.numel() + 1, dtype=img.dtype, device=dev)[1:].view(img.shape)
+    msk_u = torch.empty(msk.numel() + 3, dtype=msk.dtype, device=dev)[3:].view(msk.shape)
+    img_u.copy_(img)
+    msk_u.copy_(msk)
+    assert img_u.data_ptr() % 16 and msk_u.data_ptr() % 16
+    _flip_check((img_u, msk, hf, vf, s))
+    _flip_check((img, msk_u, hf, vf, s))
+
+
+def test_flip_scale_over_max_batch_takes_one_launch_per_chunk(dev):
+    from unet_tpu_torch.ops import aug
+
+    b = aug.MAX_B + 88
+    img, msk, _, _, _ = _flip_case(dev, torch.uint8, torch.uint8, b, 6, 12)
+    rng = np.random.default_rng(0)
+    hf, vf = torch.from_numpy(rng.random(b) < 0.5), torch.from_numpy(rng.random(b) < 0.5)
+    _flip_check((img, msk, hf, vf, torch.from_numpy(rng.uniform(0.1, 2, b).astype(np.float32))),
+                launches=2)
+
+
+def test_flip_scale_flags_and_scales_on_the_card(dev):
+    img, msk, hf, vf, s = _flip_case(dev, torch.uint16, torch.int64, 6, 20, 40)
+    _flip_check((img, msk, hf.to(dev), vf.to(dev), s.to(dev)))
+
+
+@pytest.mark.parametrize("w,unaligned,group", [(512, False, 4), (300, False, 4), (301, False, 1),
+                                               (512, True, 1)])
+def test_flip_scale_call_is_one_kernel_on_its_path(dev, w, unaligned, group):
+    """Host flags and scales: one device operation a call (no copy), the
+    word-path kernel where W % 4 == 0 and the pointers are aligned."""
+    from unet_tpu_torch.ops import aug
+
+    img, msk, hf, vf, s = _flip_case(dev, torch.uint8, torch.uint8, 16, 8, w)
+    if unaligned:
+        img = torch.empty(img.numel() + 1, dtype=img.dtype, device=dev)[1:].view(img.shape)
+    names = _device_op_names(lambda: aug.fused_flip_scale(img, msk, hf, vf, s))
+    assert len(names) == 1 and "flip_scale_kernel<" in names[0], names
+    assert f", {group}>" in names[0], names
 
 
 def test_flip_scale_rejects_bad_input(dev):
@@ -227,6 +310,51 @@ def test_offset_copy_rejects_bad_input(dev):
         probe.offset_copy(src.double(), off)
     with pytest.raises(ValueError, match="aligned"):
         probe.offset_copy(torch.zeros(17 * 128 + 1, device=dev)[1:].view(17, 128), off)
+
+
+def test_offset_copy_1000_calls_in_a_row_bit_equal(dev):
+    from unet_tpu_torch.ops import probe
+
+    src = torch.randn((64, 128), generator=torch.Generator(device=dev).manual_seed(7),
+                      device=dev)
+    offs = [torch.tensor([o], dtype=torch.int32, device=dev) for o in range(8)]
+    before = probe.offset_copy.launches
+    got = [probe.offset_copy(src, offs[i % 8]) for i in range(1000)]
+    torch.cuda.synchronize()
+    assert probe.offset_copy.launches == before + 1000
+    for i, g in enumerate(got):
+        assert torch.equal(g, src[8 * (i % 8):8 * (i % 8) + 8]), i
+
+
+def test_offset_copy_bad_offset_then_good_call(dev):
+    from unet_tpu_torch.ops import probe
+
+    src = torch.arange(16 * 128, dtype=torch.float32, device=dev).view(16, 128)
+    with pytest.raises(ValueError, match="out of range"):
+        probe.offset_copy(src, torch.tensor([5], dtype=torch.int32, device=dev))
+    got = probe.offset_copy(src, torch.tensor([1], dtype=torch.int32, device=dev))
+    assert torch.equal(got, src[8:16])
+
+
+def test_offset_copy_failed_launch_raises(dev, monkeypatch):
+    """A launcher that reports a CUDA error: RuntimeError, not a result."""
+    from unet_tpu_torch.ops import probe
+
+    probe._kernel("copy")
+    monkeypatch.setitem(probe._kernels, "copy", lambda *args: 700)
+    src = torch.zeros((16, 128), device=dev)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        probe.offset_copy(src, torch.tensor([0], dtype=torch.int32, device=dev))
+
+
+def test_offset_copy_call_is_one_kernel(dev):
+    """The status comes back through pinned host memory: no copy."""
+    from unet_tpu_torch.ops import probe
+
+    src = torch.zeros((16, 128), device=dev)
+    off = torch.tensor([1], dtype=torch.int32, device=dev)
+    names = _device_op_names(lambda: probe.offset_copy(src, off))
+    assert len(names) == 1 and "offset_copy_kernel" in names[0], names
 
 
 def test_capability_check_all_ok(dev):

@@ -2,6 +2,8 @@
 package's probe kernel (Pallas, interpreted on the CPU), and the capability
 check's refusal to run without a card."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,3 +121,63 @@ def test_capability_check_covers_every_cuda_source():
     assert set(probe.SOURCES) == sources
     assert set(probe.CHECKS) == {"blend_count", "bn_sum_sumsq", "bn_bwd_sums",
                                  "flip_scale", "offset_copy"}
+
+
+# --- offset_copy's status word, with the launcher stubbed ---
+
+
+def _stub_launch(word=None, err=0):
+    """A launcher that writes ``word`` (None: nothing) where the kernel
+    would write its status, and returns the CUDA error ``err``."""
+    calls = []
+
+    def launch(ptr):
+        calls.append(ptr)
+        if word is not None:
+            ctypes.c_int32.from_address(ptr).value = word
+        return err
+    return launch, calls
+
+
+@pytest.mark.parametrize("word", [0, 1])
+def test_status_word_is_cleared_then_read_after_the_wait(word):
+    status = torch.tensor([7], dtype=torch.int32)  # a stale word
+    order = []
+    launch, calls = _stub_launch(word or None)  # a good kernel writes nothing
+
+    def wait():
+        order.append(("wait", int(status[0])))
+    got = probe._run_with_status(lambda p: (order.append(("launch", int(status[0]))),
+                                            launch(p))[1], wait, status)
+    assert got == word and calls == [status.data_ptr()]
+    assert order == [("launch", 0), ("wait", word)]
+
+
+def test_status_word_left_clear_after_a_bad_call_reads_as_good():
+    """A refused offset leaves 1 behind; the next call starts from 0 and a
+    kernel that writes nothing reads as a copy."""
+    status = torch.zeros(1, dtype=torch.int32)
+    assert probe._run_with_status(_stub_launch(1)[0], lambda: None, status) == 1
+    word = probe._run_with_status(_stub_launch(None)[0], lambda: None, status)
+    assert word == 0
+    probe._raise_for_status(word, _t(1), 16)
+
+
+def test_failed_launch_raises_before_any_wait():
+    launch, _ = _stub_launch(None, err=700)
+    waited = []
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        probe._run_with_status(launch, lambda: waited.append(1), torch.zeros(1, dtype=torch.int32))
+    assert waited == []
+
+
+@pytest.mark.parametrize("off", [-1, 2, 1000])
+def test_status_one_raises_value_error_with_the_offset(off):
+    with pytest.raises(ValueError, match=f"offset {off} out of range"):
+        probe._raise_for_status(1, _t(off), 16)
+
+
+def test_status_zero_passes_and_unknown_words_raise():
+    probe._raise_for_status(0, _t(1), 16)
+    with pytest.raises(RuntimeError, match="status word 7"):
+        probe._raise_for_status(7, _t(1), 16)

@@ -9,7 +9,9 @@ disk, switches those kernels on or off.
   ``csrc/offset_copy.cu``, the counterpart of the probe's kernel:
   ``src[off*8 : off*8+8]`` of an (R, 128) float32 array, with the int32[1]
   offset read on the device and the rows moved by one bulk async copy
-  into shared memory that completes through an mbarrier. CUDA tensors
+  into shared memory that completes through an mbarrier (and out by a
+  second bulk copy); a bad offset comes back through a word of pinned
+  host memory, so a call is one device operation. CUDA tensors
   only; anything else raises. Launches are counted in
   ``offset_copy.launches``.
 * ``offset_copy_reference(src, off)`` — its plain version.
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import threading
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -72,15 +75,55 @@ def _kernel(name: str) -> Callable:
     return _kernels[name]
 
 
+_local = threading.local()  # this thread's pinned status word, made at its first call
+
+
+def _status_word() -> torch.Tensor:
+    """This thread's word of pinned host memory for the kernel's status (a
+    call waits for its kernel before it returns, so one word a thread
+    serves every device)."""
+    if not hasattr(_local, "status"):
+        _local.status = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    return _local.status
+
+
+def _run_with_status(launch: Callable[[int], int], wait: Callable[[], None],
+                     status: torch.Tensor) -> int:
+    """Clear the host status word to 0, call ``launch`` with its address
+    (it returns a CUDA error code), ``wait`` for the kernel, and return the
+    word: still 0 unless the kernel refused the offset."""
+    status.zero_()
+    err = launch(status.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"offset_copy launch failed: CUDA error {err}")
+    wait()
+    return int(status.item())
+
+
+def _raise_for_status(word: int, off: torch.Tensor, n_rows: int) -> None:
+    """0: the rows were copied. 1: the kernel refused the offset; it is read
+    from the device (only now) for ``ValueError``'s message. Any other word
+    is not the kernel's."""
+    if word == 0:
+        return
+    if word == 1:
+        o = int(off[0])
+        _check_offset(o, n_rows)
+        raise ValueError(f"offset_copy: the kernel refused offset {o} for {n_rows} rows")
+    raise RuntimeError(f"offset_copy: status word {word} after the kernel")
+
+
 def offset_copy(src: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel ``offset_copy``: ``src[off*8 : off*8+8]`` as a new
     (8, 128) float32 tensor, in one launch on the current stream.
 
     src (R, 128) float32 with R >= 8, contiguous and 16-byte aligned; off
     (1,) int32 on the same CUDA device. The kernel reads the offset on the
-    device; the wrapper reads back only the kernel's status word, and
-    raises ``ValueError`` when the offset is out of range (nothing is
-    copied then)."""
+    device and marks a bad one in a word of pinned host memory; the
+    wrapper waits on the stream and reads the word (no device-to-host
+    copy), and raises ``ValueError`` when the offset is out of range
+    (nothing is copied then). A failed launch raises ``RuntimeError``, and
+    a fault in the kernel the stream's wait."""
     op = "offset_copy"
     for name, t in (("src", src), ("off", off)):
         if not t.is_cuda:
@@ -95,20 +138,20 @@ def offset_copy(src: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
                          f"{tuple(src.shape)} {src.dtype}")
     if off.dtype != torch.int32 or off.shape != (1,):
         raise ValueError(f"{op}: off must be (1,) int32, got {tuple(off.shape)} {off.dtype}")
-    if src.data_ptr() % 16:
-        raise ValueError(f"{op}: src is not 16-byte aligned (a bulk copy needs it)")
     out = torch.empty((ROWS, COLS), dtype=torch.float32, device=src.device)
-    status = torch.empty(1, dtype=torch.int32, device=src.device)
+    for name, t in (("src", src), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned (a bulk copy needs it)")
+    status = _status_word()
     fn = _kernel("copy")
     with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(src.data_ptr(), off.data_ptr(), out.data_ptr(), status.data_ptr(),
-                 src.shape[0], stream)
-    if err != 0:
-        raise RuntimeError(f"{op} launch failed: CUDA error {err}")
+        stream = torch.cuda.current_stream()
+        word = _run_with_status(
+            lambda ptr: fn(src.data_ptr(), off.data_ptr(), out.data_ptr(), ptr,
+                           src.shape[0], stream.cuda_stream),
+            stream.synchronize, status)
     offset_copy.launches += 1
-    if int(status.item()) != 0:
-        _check_offset(int(off[0]), src.shape[0])
+    _raise_for_status(word, off, src.shape[0])
     return out
 
 
