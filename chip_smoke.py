@@ -22,15 +22,27 @@ Phases (any failure raises and the script exits nonzero), in this order:
      library scatter-add; the host phases of a serve timed one by one, and
      the scene served again in this process with the model resident (warm
      tiles/s, the forwards' share of it, the kernel's launch count);
+     5b. the reference-shaped model, xresnet34 parity topology with
+     self-attention (γ = 0.5, as γ = 0 makes the attention an identity),
+     same widths, classes, tiles, batch and bf16: a seeded bundle serves
+     the scene through ``python -m unet_tpu_torch serve`` (class map
+     checked, one blend_count launch a batch), then warm in this process
+     (tiles/s, forward ms a batch, launches), and bf16 against float32
+     class maps on 16 windows of 512² and of 402² (a side not divisible by
+     4: the decoder's nearest-resizes), >= 99% each;
   6. the training kernels vs their plain versions on random inputs, timed
      beside their bound and a PyTorch library call: bn_stats forward and
-     backward at the 7 (C, H·W) shapes of the 43 training BatchNorms of the
-     xresnet34 U-Net at batch 16 × 512², in bf16 and float32, plus two
+     backward at the (C, H·W) shapes of the 43 training BatchNorms of the
+     xresnet34 U-Net at batch 16 × 512² in both topologies (tpu_opt's 7,
+     parity's 6 with its stem's (32, 256²)), in bf16 and float32, plus two
      ragged shapes (within 1e-6 of the float64 sums, relative to Σ|x|,
-     Σx², Σ|dy| and Σ|dy·x̂|; two launches bit-identical), and flip_scale on
+     Σx², Σ|dy| and Σ|dy·x̂|; two launches bit-identical), with totals per
+     train step of each topology, and flip_scale on
      16 × 3 × 512² uint8 tiles with uint8 masks and mixed flags and on a
      ragged 16 × 3 × 37 × 301 batch (bit-equal), with the host time its
-     wrapper takes a call;
+     wrapper takes a call; PixelShuffleICNR (conv + pixel shuffle) timed
+     against the JAX package's formulation (one transposed conv) at the
+     parity model's five upsamples;
      then ``doctor --kernels``, the path that runs offset_copy: in this
      process with every launch count set to 0 (each of the five kernels
      launched once, all checks ok), then ``python -m unet_tpu_torch doctor
@@ -53,17 +65,26 @@ Phases (any failure raises and the script exits nonzero), in this order:
      within 1e-3 relative, each parameter's gradient within 5e-2 relative
      L2 — bf16 convolutions — relative to at least 1e-2 of the RMS of all
      gradients);
+     8b. the parity + self-attention model: ``python -m unet_tpu_torch
+     train --no-tpu-opt --self-attention`` for 1 epoch (4 steps and a
+     validation batch; launches 43 a step for each bn_stats kernel, one
+     flip_scale a batch; the exported u vectors moved from their init) and
+     its bundle served; then in this process the step time, the per-step
+     launches and a kernel step against a plain step (the bars of 8), and
+     the self-attention and the full-resolution tail timed alone;
   9. bf16 vs float32 class maps on one batch of 16 tiles (>= 99% agree);
-  10. last, as the profiler slows later launches: a warm serve and a few
-     train steps under torch.profiler for the card's idle share, then the
-     device time of every kernel, its plain version and its library call
-     at the shapes above (the union of the traced device intervals, host
-     overhead left out; the CUDA-event times per call include it); from
-     the same traces, one call of flip_scale (main and ragged shapes) and
-     of offset_copy must be exactly one device operation, their kernel —
-     flip_scale's main shape on the word path, the ragged one on the
-     element path — and each kernel's own interval is printed beside the
-     union, flip_scale's with its GB/s against the bytes bound.
+  10. last, as the profiler slows later launches: the device time of every
+     kernel, its plain version and its library call at the shapes above
+     (the union of the traced device intervals, host overhead left out;
+     the CUDA-event times per call include it); from the same traces, one
+     call of flip_scale (main and ragged shapes) and of offset_copy must be
+     exactly one device operation, their kernel — flip_scale's main shape
+     on the word path, the ragged one on the element path — and each
+     kernel's own interval is printed beside the union, flip_scale's with
+     its GB/s against the bytes bound; then a warm serve and a few train
+     steps of each topology under torch.profiler for the card's idle share,
+     with the parity step's device time by kernel and by PyTorch op (the
+     attention products and softmax named).
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network; work files go to a
 temporary directory inside the checkout and are removed at the end.
@@ -96,6 +117,9 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # U-Net at 512² tiles; each runs at batch 16
 BN_SITES = [(64, 128, 7), (64, 256, 1), (128, 64, 10), (128, 128, 2),
             (256, 32, 14), (256, 128, 1), (512, 16, 8)]
+# the same for the parity topology (three-conv stem at 32/32/64 channels)
+BN_SITES_PARITY = [(32, 256, 2), (64, 256, 2), (64, 128, 7), (128, 64, 10),
+                   (256, 32, 14), (512, 16, 8)]
 BN_RAGGED = [(3, 3, 37, 41), (5, 1, 17, 13)]  # (N, C, H, W): C = 3 and 1, odd N·H·W
 TRAIN_EPOCHS = 2      # CLI training: 2 epochs of 64 // 16 = 4 steps
 TRAIN_STEPS = 6       # in-process timed steps
@@ -108,6 +132,13 @@ LATE_UNIT = {"blend_count": "batch of 16 tiles", "bn_sum_sumsq": "train step",
 FLIP_RAGGED = (BATCH, 3, 37, 301)  # W % 4 != 0: flip_scale's element path
 FLIP_GROUP = re.compile(r"flip_scale_kernel<[^<>]*, (\d)>")
 REDESIGNED = ("flip_scale", "offset_copy")  # redesigned after their first port (PERF.md §6)
+# the reference-shaped model: fastai DynamicUnet (parity topology, blur,
+# blur_final, last_cross) with self-attention, at the flagship's widths
+PARITY = dict(arch="xresnet34", n_out=N_OUT, c_in=3, self_attention=True, tpu_opt=False)
+SA_GAMMA = 0.5        # γ = 0 (its init) would make the attention an identity
+PARITY_ODD = 402      # a window side not divisible by 4: the resize path
+PARITY_EPOCHS = 1     # CLI training: 1 epoch of 64 // 16 = 4 steps
+PARITY_STEPS = 6      # in-process timed parity steps
 
 
 def log(msg: str) -> None:
@@ -219,22 +250,47 @@ def check_class_map(path: Path, transform, crs) -> list:
     return np.bincount(out.data.ravel(), minlength=N_OUT).tolist()
 
 
-def make_bundle(root: Path) -> Path:
+def make_bundle(root: Path, name: str = "smoke", parity: bool = False) -> Path:
+    """A seeded random-init bundle: the flagship xresnet34 tpu_opt U-Net,
+    or with ``parity`` the reference-shaped parity U-Net with
+    self-attention (γ set to SA_GAMMA)."""
     from unet_tpu_torch.models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
+    from unet_tpu_torch.models.layers import SelfAttention
     from unet_tpu_torch.train.checkpoint import export_bundle, to_flax_variables
 
-    model = build_unet("xresnet34", n_out=N_OUT, c_in=3, dtype=torch.bfloat16)
-    init_weights(model, torch.Generator().manual_seed(SEED))
+    kw = PARITY if parity else dict(arch="xresnet34", n_out=N_OUT, c_in=3)
+    model = init_weights(build_unet(dtype=torch.bfloat16, **kw),
+                         torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SelfAttention):
+                m.gamma.fill_(SA_GAMMA)
     manifest = {
         "ARCHITECTURE": "xresnet34", "n_out": N_OUT, "c_in": 3,
         "number_of_bands": 3, "patch_size": PATCH, "enable_regression": False,
         "CODES": ["background", "building", "vegetation"],
-        "dtype_str": "uint8", "normalize": "unit", "self_attention": False,
-        "tpu_opt": True, "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION,
+        "dtype_str": "uint8", "normalize": "unit", "self_attention": parity,
+        "tpu_opt": not parity,
+        "tpu_opt_topology": None if parity else TPU_OPT_TOPOLOGY_VERSION,
     }
-    export_bundle(root / "smoke", "smoke", to_flax_variables(model.state_dict()),
-                  manifest)
-    return root / "smoke"
+    export_bundle(root / name, name, to_flax_variables(model.state_dict()), manifest)
+    return root / name
+
+
+def serve_cli(bundle: Path, scene: Path, out: Path, stats_path=None) -> dict:
+    """``python -m unet_tpu_torch serve`` of ``scene`` in a subprocess
+    (its launch counts start at 0 there); the stats file's content when
+    ``stats_path`` is given."""
+    cmd = [sys.executable, "-m", "unet_tpu_torch", "serve", str(bundle), str(scene),
+           str(out), "--patch-size", str(PATCH), "--batch-size", str(BATCH)]
+    if stats_path is not None:
+        cmd += ["--stats-json", str(stats_path)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
+    log(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve of {bundle.name} exited {proc.returncode}")
+    return json.loads(Path(stats_path).read_text()) if stats_path is not None else {}
 
 
 def blend_bound_ms(n, c, th, tw, rows, cols) -> tuple:
@@ -337,20 +393,25 @@ def device_trace(fn, what: str, reps: int = 20, tries: int = 5) -> dict:
 def device_times(late: list) -> dict:
     """kernel -> {"ms", "plain_ms", "library_ms"}: device time of each timed
     case times its count per main-path unit (a train step, a batch), summed
-    over the kernel's cases. A case with a ``symbol`` keeps the trace of
-    its kernel calls in ``case["trace"]`` for ``one_op_checks``."""
+    over the kernel's cases; a case with a ``parity_count`` also adds to
+    ``"parity_ms"`` (per parity train step). A case with a ``symbol`` keeps
+    the trace of its kernel calls in ``case["trace"]`` for
+    ``one_op_checks``."""
     out: dict = {}
     for case in late:
         tot = out.setdefault(case["kernel"], {"ms": 0.0, "plain_ms": 0.0, "library_ms": None})
         for key, fn in case["fns"].items():
             tr = device_trace(fn, f"{case['kernel']} {key} {case.get('what', '')}")
             tot[key] = (tot[key] or 0.0) + case["count"] * tr["ms"]
+            if key == "ms" and "parity_count" in case:
+                tot["parity_ms"] = tot.get("parity_ms", 0.0) + case["parity_count"] * tr["ms"]
             if key == "ms" and "symbol" in case:
                 case["trace"] = tr
     for name, tot in out.items():
         lib = "not measured" if tot["library_ms"] is None else f"{tot['library_ms']:.4f}"
+        parity = f", kernel {tot['parity_ms']:.4f} ms per parity step" if "parity_ms" in tot else ""
         print(f"{name} device time (torch.profiler) per {LATE_UNIT[name]}: kernel "
-              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library {lib} ms")
+              f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, library {lib} ms{parity}")
     return out
 
 
@@ -390,22 +451,30 @@ def one_op_checks(late: list) -> dict:
 
 def bn_phase(dev, late: list) -> dict:
     """bn_stats forward and backward against their plain versions and the
-    float64 sums at every training BatchNorm shape, bf16 and float32, plus
-    ragged shapes; each call timed with CUDA events (bf16 sites weighted by
-    their count give the per-step totals), and the bf16 sites queued in
-    ``late`` for their device time."""
+    float64 sums at every training BatchNorm shape of both topologies
+    (tpu_opt's 7 and parity's 6, one of them new: the parity stem's (32,
+    256²)), bf16 and float32, plus ragged shapes; each call timed with
+    CUDA events (bf16 sites weighted by their count give the per-step
+    totals of each topology), and the bf16 sites queued in ``late`` for
+    their device time."""
     from unet_tpu_torch.ops import bn
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     dims = (0, 2, 3)
-    step = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_lib_ms", "bwd_ms",
-                             "bwd_plain_ms", "bwd_lib_ms", "fwd_bound_ms",
-                             "bwd_bound_ms")}
+    keys = ("fwd_ms", "fwd_plain_ms", "fwd_lib_ms", "bwd_ms", "bwd_plain_ms", "bwd_lib_ms",
+            "fwd_bound_ms", "bwd_bound_ms")
+    step = {k: 0.0 for k in keys}
+    pstep = {k: 0.0 for k in keys}
     worst = {"fwd": 0.0, "bwd": 0.0}
-    cases = [((BATCH, c, hw, hw), dt, count) for c, hw, count in BN_SITES
+    counts: dict = {}
+    for i, sites in enumerate((BN_SITES, BN_SITES_PARITY)):
+        for c, hw, count in sites:
+            counts.setdefault((c, hw), [0, 0])[i] = count
+    cases = [((BATCH, c, hw, hw), dt, tc, pc) for (c, hw), (tc, pc) in counts.items()
              for dt in (torch.bfloat16, torch.float32)]
-    cases += [(shape, dt, 0) for shape in BN_RAGGED for dt in (torch.bfloat16, torch.float32)]
-    for shape, dt, count in cases:
+    cases += [(shape, dt, 0, 0) for shape in BN_RAGGED
+              for dt in (torch.bfloat16, torch.float32)]
+    for shape, dt, count, pcount in cases:
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dt)
         dy = torch.randn(shape, generator=g, device=dev).to(dt)
         n_el = x.numel()
@@ -432,7 +501,7 @@ def bn_phase(dev, late: list) -> dict:
                                      f"{float((err / scale).max()):.3g} of the bound's scale")
         worst["fwd"] = max(worst["fwd"], float((s1 - sp).abs().max()))
         worst["bwd"] = max(worst["bwd"], float((b1 - bp).abs().max()))
-        if dt != torch.bfloat16 or not count:
+        if dt != torch.bfloat16 or not (count or pcount):
             continue
         w = torch.ones(c, device=dev)
         fwd = {"ms": lambda x=x: bn.bn_sum_sumsq(x),
@@ -442,8 +511,8 @@ def bn_phase(dev, late: list) -> dict:
                "plain_ms": lambda a=(dy, x, mean, inv): bn.bn_bwd_sums_reference(*a),
                "library_ms": lambda a=(dy, x, mean, inv, w): (
                    torch.ops.aten.batch_norm_backward_reduce(*a, True, True, True))}
-        late += [{"kernel": "bn_sum_sumsq", "count": count, "fns": fwd},
-                 {"kernel": "bn_bwd_sums", "count": count, "fns": bwd}]
+        late += [{"kernel": "bn_sum_sumsq", "count": count, "parity_count": pcount, "fns": fwd},
+                 {"kernel": "bn_bwd_sums", "count": count, "parity_count": pcount, "fns": bwd}]
         t = {"fwd_ms": cuda_ms(fwd["ms"]), "fwd_plain_ms": cuda_ms(fwd["plain_ms"]),
              "fwd_lib_ms": cuda_ms(fwd["library_ms"]), "bwd_ms": cuda_ms(bwd["ms"]),
              "bwd_plain_ms": cuda_ms(bwd["plain_ms"]), "bwd_lib_ms": cuda_ms(bwd["library_ms"]),
@@ -451,18 +520,21 @@ def bn_phase(dev, late: list) -> dict:
              "bwd_bound_ms": 2 * n_el * x.element_size() / HBM_BYTES_PER_S * 1e3}
         for k, v in t.items():
             step[k] += count * v
-        print(f"bn_stats {shape} bf16 x{count}: fwd {t['fwd_ms'] * 1e3:.1f} us (plain "
-              f"{t['fwd_plain_ms'] * 1e3:.1f}, batch_norm_stats {t['fwd_lib_ms'] * 1e3:.1f}, "
-              f"bound {t['fwd_bound_ms'] * 1e3:.1f}); bwd {t['bwd_ms'] * 1e3:.1f} us (plain "
+            pstep[k] += pcount * v
+        print(f"bn_stats {shape} bf16 x{count} tpu_opt, x{pcount} parity: fwd "
+              f"{t['fwd_ms'] * 1e3:.1f} us (plain {t['fwd_plain_ms'] * 1e3:.1f}, "
+              f"batch_norm_stats {t['fwd_lib_ms'] * 1e3:.1f}, bound "
+              f"{t['fwd_bound_ms'] * 1e3:.1f}); bwd {t['bwd_ms'] * 1e3:.1f} us (plain "
               f"{t['bwd_plain_ms'] * 1e3:.1f}, batch_norm_backward_reduce "
               f"{t['bwd_lib_ms'] * 1e3:.1f}, bound {t['bwd_bound_ms'] * 1e3:.1f})")
-    print(f"bn_stats: {len(cases)} cases within 1e-6 of float64 and bit-stable; per train "
-          f"step (43 sites, bf16, CUDA events per call): fwd {step['fwd_ms']:.3f} ms, plain "
-          f"{step['fwd_plain_ms']:.3f}, library {step['fwd_lib_ms']:.3f}, bound "
-          f"{step['fwd_bound_ms']:.3f}; bwd {step['bwd_ms']:.3f} ms, plain "
-          f"{step['bwd_plain_ms']:.3f}, library {step['bwd_lib_ms']:.3f}, bound "
-          f"{step['bwd_bound_ms']:.3f}")
-    return {**step, "fwd_err": worst["fwd"], "bwd_err": worst["bwd"]}
+    for what, tot in (("tpu_opt", step), ("parity", pstep)):
+        print(f"bn_stats: per {what} train step (43 sites, bf16, CUDA events per call): fwd "
+              f"{tot['fwd_ms']:.3f} ms, plain {tot['fwd_plain_ms']:.3f}, library "
+              f"{tot['fwd_lib_ms']:.3f}, bound {tot['fwd_bound_ms']:.3f}; bwd "
+              f"{tot['bwd_ms']:.3f} ms, plain {tot['bwd_plain_ms']:.3f}, library "
+              f"{tot['bwd_lib_ms']:.3f}, bound {tot['bwd_bound_ms']:.3f}")
+    print(f"bn_stats: {len(cases)} cases within 1e-6 of float64 and bit-stable")
+    return {**step, "parity_step": pstep, "fwd_err": worst["fwd"], "bwd_err": worst["bwd"]}
 
 
 def flip_inputs(dev, shape: tuple, seed: int) -> tuple:
@@ -520,15 +592,16 @@ def flip_phase(dev, late: list) -> dict:
     return out
 
 
-def train_cli_phase(tmp: Path, tiles: Path) -> dict:
-    """``python -m unet_tpu_torch train`` in a subprocess (launch counts
-    start at 0 there and come back in the stats file)."""
-    stats_path = tmp / "train_stats.json"
+def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
+                    epochs: int = TRAIN_EPOCHS, flags: tuple = ()) -> dict:
+    """``python -m unet_tpu_torch train [flags]`` in a subprocess (launch
+    counts start at 0 there and come back in the stats file)."""
+    stats_path = tmp / f"{description}_stats.json"
     cmd = [sys.executable, "-m", "unet_tpu_torch", "train", str(tiles),
-           "--model-path", str(tmp / "models"), "--description", "trained",
+           "--model-path", str(tmp / "models"), "--description", description,
            "--codes", "background", "building", "vegetation", "--arch", "xresnet34",
-           "--batch-size", str(BATCH), "--epochs", str(TRAIN_EPOCHS), "--lr", "1e-3",
-           "--seed", str(SEED), "--stats-json", str(stats_path)]
+           "--batch-size", str(BATCH), "--epochs", str(epochs), "--lr", "1e-3",
+           "--seed", str(SEED), "--stats-json", str(stats_path), *flags]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
                           env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
@@ -537,8 +610,8 @@ def train_cli_phase(tmp: Path, tiles: Path) -> dict:
         raise RuntimeError(f"train exited {proc.returncode}")
     wall = time.perf_counter() - t0
     st = json.loads(stats_path.read_text())
-    steps = TRAIN_EPOCHS * (64 // BATCH)
-    evals = TRAIN_EPOCHS * -(-16 // BATCH)
+    steps = epochs * (64 // BATCH)
+    evals = epochs * -(-16 // BATCH)
     want = {"bn_sum_sumsq": 43 * steps, "bn_bwd_sums": 43 * steps,
             "flip_scale": steps + evals}
     if st["steps"] != steps or st["launches"] != want:
@@ -547,13 +620,13 @@ def train_cli_phase(tmp: Path, tiles: Path) -> dict:
     for row in st["history"]:
         if not all(np.isfinite([row["train_loss"], row["valid_loss"], row["dice_multi"]])):
             raise AssertionError(f"non-finite history row {row}")
-    bundle = tmp / "models" / "trained"
-    for name in ("trained.json", "trained.msgpack", "best-model.msgpack",
-                 "trained_history.csv"):
+    bundle = tmp / "models" / description
+    for name in (f"{description}.json", f"{description}.msgpack", "best-model.msgpack",
+                 f"{description}_history.csv"):
         if not (bundle / name).is_file():
             raise AssertionError(f"bundle lacks {name}")
     ms = st["step_ms"]
-    print(f"train CLI: {steps} steps of {BATCH}x{PATCH}² in {st['seconds']:.2f} s of fit "
+    print(f"train CLI {' '.join(flags)}: {steps} steps of {BATCH}x{PATCH}² in {st['seconds']:.2f} s of fit "
           f"({wall:.1f} s with process start); step {float(np.median(ms[1:])):.1f} ms "
           f"median after the first ({ms[0]:.1f} ms); history "
           + "; ".join(f"epoch {r['epoch']}: train {r['train_loss']:.4f} valid "
@@ -569,24 +642,34 @@ def train_cli_phase(tmp: Path, tiles: Path) -> dict:
     return {"bundle": bundle, "launches": st["launches"], "stats": st}
 
 
-def train_inprocess_phase(tiles: Path, tmp: Path) -> dict:
+def train_inprocess_phase(tiles: Path, tmp: Path, steps: int = TRAIN_STEPS,
+                          parity: bool = False) -> dict:
     """Step time, per-step launch counts, and a kernel step against a plain
-    step from the same state, batch and flags."""
-    from unet_tpu_torch.models.layers import BatchNorm
+    step from the same state, batch and flags; the flagship tpu_opt model,
+    or with ``parity`` the parity model with self-attention (γ set to
+    SA_GAMMA after the init, so the attention takes part in the step)."""
+    from unet_tpu_torch.models.layers import BatchNorm, SelfAttention
     from unet_tpu_torch.ops import aug, bn
     from unet_tpu_torch.train.loop import Trainer, TrainerConfig
 
+    what = "parity+SA" if parity else "tpu_opt"
     trainer = Trainer(TrainerConfig(
         data_path=tiles, model_path=tmp / "inproc", description="inproc",
         codes=("background", "building", "vegetation"), arch="xresnet34",
-        batch_size=BATCH, epochs=1, lr=1e-3, seed=SEED))
+        batch_size=BATCH, epochs=1, lr=1e-3, seed=SEED, tpu_opt=not parity,
+        self_attention=parity))
     try:
         trainer.init_state()
+        with torch.no_grad():
+            for m in trainer.model.modules():
+                if isinstance(m, SelfAttention):
+                    m.gamma.fill_(SA_GAMMA)
         host = [b[:2] for b in trainer.train_loader]
         counters = (bn.bn_sum_sumsq, bn.bn_bwd_sums, aug.fused_flip_scale)
         per_step = []
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             for f in counters:
                 f.launches = 0
             trainer.train_step(*host[i % len(host)])
@@ -597,7 +680,7 @@ def train_inprocess_phase(tiles: Path, tmp: Path) -> dict:
             raise AssertionError(f"per-step launches {per_step}, expected (43, 43, 1)")
         ms = trainer.step_ms()
         step_ms = float(np.median(ms[1:]))
-        print(f"train in-process: {TRAIN_STEPS} steps, {step_ms:.2f} ms per step median "
+        print(f"train in-process, {what}: {steps} steps, {step_ms:.2f} ms per step median "
               f"after the first ({ms[0]:.1f} ms) = {BATCH * 1e3 / step_ms:.1f} tiles/s "
               f"(CUDA events); wall {wall:.2f} s; launches per step "
               f"bn_sum_sumsq/bn_bwd_sums/flip_scale {per_step[-1]}; peak memory "
@@ -638,7 +721,7 @@ def train_inprocess_phase(tiles: Path, tmp: Path) -> dict:
         worst = max(rel)
         diff = sum(float((gk - p.grad).pow(2).sum()) for (_, p), gk in zip(named, grads_k))
         loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        print(f"kernel step vs plain step: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+        print(f"{what} kernel step vs plain step: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
               f"{loss_rel:.2e}); all gradients' relative L2 error {(diff / sq) ** 0.5:.2e}; "
               f"per tensor median {float(np.median([r for r, _ in rel])):.2e}, worst "
               f"{worst[0]:.2e} ({worst[1]}) over {len(rel)} tensors (floor "
@@ -646,7 +729,8 @@ def train_inprocess_phase(tiles: Path, tmp: Path) -> dict:
         if loss_rel > 1e-3 or worst[0] > GRAD_REL_L2:
             raise AssertionError("kernel step and plain step disagree")
         trainer.model.load_state_dict(state)
-        return {"trainer": trainer, "host": host, "step_ms": step_ms}
+        return {"trainer": trainer, "host": host, "step_ms": step_ms, "loss_rel": loss_rel,
+                "grad_worst": worst[0], "launches": per_step[-1]}
     except BaseException:
         trainer.close()
         raise
@@ -813,6 +897,206 @@ def native_phase(tmp: Path, tiles: Path) -> dict:
     return {"batch_ms": med, "codec_ms": per_codec}
 
 
+def class_agreement(pred, pred32, x: np.ndarray) -> tuple:
+    """(share of pixels whose bf16 class equals the float32 one, class map
+    shape) on one batch ``x``, TF32 off for the float32 forward."""
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cls16 = pred.predict_batch_device(x, argmax_u8=True)
+        cls32 = pred32.predict_batch_device(x, argmax_u8=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return (cls16 == cls32).float().mean().item(), tuple(cls16.shape)
+
+
+def parity_serve_phase(dev, tmp: Path, transform, crs, hwc: np.ndarray) -> dict:
+    """Serve the 4096² scene through a seeded parity + self-attention bundle
+    (γ = SA_GAMMA): cold through ``python -m unet_tpu_torch serve`` (class
+    map checked, one blend_count launch a batch), then warm in this process
+    (tiles/s, the forwards' share, launches), then bf16 against float32
+    class maps on 16 windows of 512² and on 16 windows of PARITY_ODD² (a
+    side not divisible by 4: the decoder's nearest-resizes)."""
+    from unet_tpu_torch.ops.blend import blend_and_count
+    from unet_tpu_torch.predict.predict import Predictor, predict_raster
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    bundle = make_bundle(tmp, "parity", parity=True)
+    st = serve_cli(bundle, tmp / "scene.tif", tmp / "parity.tif", tmp / "parity_serve.json")
+    classes = check_class_map(tmp / "parity.tif", transform, crs)
+    windows = generate_windows(SCENE, SCENE, PATCH, 0.2)
+    n_batches = -(-len(windows) // BATCH)
+    cold_launches = int(st["launches"]["blend_count"])
+    if cold_launches != n_batches:
+        raise AssertionError(f"parity serve launched blend_count {cold_launches} times for "
+                             f"{n_batches} batches")
+    fwd = st["forward_ms"]
+    print(f"parity serve CLI (cold): {st['windows']} windows in {st['seconds']:.2f} s = "
+          f"{st['tiles_per_s']:.1f} tiles/s; forward {float(np.median(fwd[1:])):.1f} ms/batch "
+          f"of {BATCH} after one warm batch (first {fwd[0]:.1f} ms); blend_count launches "
+          f"{cold_launches}; classes {classes}")
+    pred = Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.bfloat16)
+    predict_raster(str(bundle), str(tmp / "scene.tif"), None, patch_size=PATCH,
+                   batch_size=BATCH, predictor=pred, device=dev)  # warm-up pass
+    n_fwd = len(pred.forward_ms())
+    blend_and_count.launches = 0
+    t0 = time.perf_counter()
+    predict_raster(str(bundle), str(tmp / "scene.tif"), str(tmp / "parity_warm.tif"),
+                   patch_size=PATCH, batch_size=BATCH, predictor=pred, device=dev)
+    warm_s = time.perf_counter() - t0
+    warm_launches = blend_and_count.launches
+    if warm_launches != n_batches:
+        raise AssertionError(f"warm parity serve launched blend_count {warm_launches} times")
+    warm_fwd = pred.forward_ms()[n_fwd:]
+    print(f"parity warm serve: {warm_s:.2f} s = {len(windows) / warm_s:.1f} tiles/s; forward "
+          f"{float(np.median(warm_fwd)):.2f} ms/batch median (CUDA events), the forwards "
+          f"{100 * sum(warm_fwd) / 1e3 / warm_s:.1f}% of the wall; blend_count launches "
+          f"{warm_launches}")
+    pred32 = Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+    agree, _ = class_agreement(pred, pred32, np.stack([hwc[w.indices()] for w in windows[:BATCH]]))
+    rng = np.random.default_rng(SEED + 6)
+    corners = rng.integers(0, SCENE - PARITY_ODD, (BATCH, 2))
+    x_odd = np.stack([hwc[r:r + PARITY_ODD, c:c + PARITY_ODD] for r, c in corners])
+    agree_odd, shape_odd = class_agreement(pred, pred32, x_odd)
+    print(f"parity bf16 vs float32 class maps: {agree * 100:.3f}% agree on {BATCH} x "
+          f"{PATCH}², {agree_odd * 100:.3f}% on {BATCH} x {PARITY_ODD}² (class map "
+          f"{shape_odd})")
+    if agree < 0.99 or agree_odd < 0.99:
+        raise AssertionError(f"parity bf16 agrees with float32 on {agree:.4f} / {agree_odd:.4f}")
+    if shape_odd != (BATCH, PARITY_ODD, PARITY_ODD):
+        raise AssertionError(f"parity class map at {PARITY_ODD}²: {shape_odd}")
+    del pred32
+    return {"bundle": bundle, "pred": pred, "launches": cold_launches,
+            "warm_launches": warm_launches, "cold_tiles_per_s": st["tiles_per_s"],
+            "warm_tiles_per_s": len(windows) / warm_s,
+            "forward_ms": float(np.median(warm_fwd))}
+
+
+def shuffle_as_convt(mod, x: torch.Tensor) -> torch.Tensor:
+    """What ``mod`` (a PixelShuffleICNR) computes, as the JAX package's
+    ``_ShuffleConv`` formulates it: one k2-s2 transposed conv whose tap
+    (dy, dx) is output channel f·4 + dy·2 + dx of the 1x1 kernel, and the
+    bias as a per-phase (nf, 2, 2) pattern; then ReLU and the blur. A
+    yardstick only; the port computes conv + pixel shuffle."""
+    from unet_tpu_torch.models.layers import replication_blur
+
+    weight, bias = mod.conv.weight, mod.conv.bias
+    nf, ni = weight.shape[0] // 4, weight.shape[1]
+    w = weight.view(nf, 2, 2, ni).permute(3, 0, 1, 2).to(x.dtype)
+    y = torch.nn.functional.conv_transpose2d(x, w, stride=2)
+    b, _, h2, w2 = y.shape
+    y = y.view(b, nf, h2 // 2, 2, w2 // 2, 2) + bias.to(x.dtype).view(1, nf, 1, 2, 1, 2)
+    y = torch.relu(y.view(b, nf, h2, w2))
+    return replication_blur(y) if mod.blur else y
+
+
+def shuffle_phase(dev) -> dict:
+    """PixelShuffleICNR (1x1 conv + pixel shuffle) against the JAX
+    package's formulation of it (one k2-s2 transposed conv with a
+    per-phase bias, ``shuffle_as_convt``) at the parity model's five
+    upsample shapes (batch 16 × 512², bf16), forward and forward +
+    backward, CUDA events; the two must agree (bf16, within 2e-2 of the
+    largest output)."""
+    from unet_tpu_torch.models.layers import PixelShuffleICNR
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    # (ni, nf, input side, blur): up_0..up_3, then final_shuf
+    sites = [(512, 256, PATCH // 32, True), (512, 256, PATCH // 16, True),
+             (384, 192, PATCH // 8, True), (256, 128, PATCH // 4, True),
+             (96, 96, PATCH // 2, False)]
+    tot = {(f, k): 0.0 for f in ("shuffle", "convt") for k in ("fwd", "fwd_bwd")}
+    for ni, nf, side, blur in sites:
+        mod = PixelShuffleICNR(ni, nf, blur=blur).to(dev)
+        with torch.no_grad():
+            mod.conv.weight.normal_(0, (2 / ni) ** 0.5, generator=g)
+            mod.conv.bias.normal_(0, 0.1, generator=g)
+        x = torch.randn((BATCH, ni, side, side), generator=g, device=dev).to(torch.bfloat16)
+        x.requires_grad_(True)
+        dy = torch.randn((BATCH, nf, 2 * side, 2 * side), generator=g,
+                         device=dev).to(torch.bfloat16)
+        fns = {"shuffle": mod, "convt": lambda t, mod=mod: shuffle_as_convt(mod, t)}
+        with torch.no_grad():
+            outs = [fn(x).float() for fn in fns.values()]
+        err = float((outs[0] - outs[1]).abs().max() / outs[0].abs().max())
+        if err > 2e-2:
+            raise AssertionError(f"PixelShuffleICNR formulations differ by {err:.3g} at "
+                                 f"({ni}, {side}²)")
+        for f, fn in fns.items():
+            tot[f, "fwd"] += cuda_ms(lambda fn=fn: fn(x.detach()))
+            tot[f, "fwd_bwd"] += cuda_ms(lambda fn=fn: fn(x).backward(dy))
+    print(f"PixelShuffleICNR at the parity model's 5 upsamples (batch {BATCH}, bf16, CUDA "
+          f"events, summed): the port's conv1x1 + pixel_shuffle fwd {tot['shuffle', 'fwd']:.3f} "
+          f"ms, fwd+bwd {tot['shuffle', 'fwd_bwd']:.3f} ms; as one k2-s2 transposed conv "
+          f"fwd {tot['convt', 'fwd']:.3f} ms, fwd+bwd {tot['convt', 'fwd_bwd']:.3f} ms")
+    return {f"{f}_{k}_ms": v for (f, k), v in tot.items()}
+
+
+def parity_train_phase(dev, tmp: Path, tiles: Path, transform, crs) -> dict:
+    """``python -m unet_tpu_torch train --no-tpu-opt --self-attention`` for
+    PARITY_EPOCHS on the tile set (launches 43 a step for each bn_stats
+    kernel, one flip_scale a batch), the exported u vectors moved from
+    their init, and the bundle serving the scene through the CLI."""
+    from unet_tpu_torch.models import build_unet, init_weights
+    from unet_tpu_torch.train.checkpoint import load_weights, to_flax_variables
+
+    tr = train_cli_phase(tmp, tiles, "parity_trained", PARITY_EPOCHS,
+                         ("--no-tpu-opt", "--self-attention"))
+    manifest = json.loads((tr["bundle"] / "parity_trained.json").read_text())
+    if manifest["tpu_opt"] is not False or manifest["self_attention"] is not True:
+        raise AssertionError(f"parity bundle manifest {manifest}")
+    init = to_flax_variables(init_weights(build_unet(**PARITY), torch.Generator()
+                                          .manual_seed(SEED)).state_dict())["batch_stats"]
+    got = load_weights(tr["bundle"] / "parity_trained.msgpack")["batch_stats"]
+    moved = {k: float(np.abs(got["up_1"]["sa"][k] - init["up_1"]["sa"][k]).max())
+             for k in ("query_u", "key_u", "value_u")}
+    if min(moved.values()) <= 1e-4:
+        raise AssertionError(f"the trained u vectors did not move: {moved}")
+    serve_cli(tr["bundle"], tmp / "scene.tif", tmp / "parity_trained.tif")
+    print(f"parity CLI bundle: u vectors moved from their init by {moved}; served the "
+          f"{SCENE}² scene: classes {check_class_map(tmp / 'parity_trained.tif', transform, crs)}")
+    return tr
+
+
+def parity_parts_ms(dev, model) -> dict:
+    """Forward + backward ms (CUDA events, bf16, training mode) of the
+    parity model's self-attention at its input shape (batch 16, 384 ×
+    (512/8)²) and of its full-resolution tail (final_shuf, concat with the
+    input, the 99-channel last_cross ResBlock, the head) from the decoder's
+    /2 output (96 × 256²), each alone."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sa_x = torch.randn((BATCH, 384, PATCH // 8, PATCH // 8), generator=g,
+                       device=dev).to(torch.bfloat16)
+    y = torch.randn((BATCH, 96, PATCH // 2, PATCH // 2), generator=g,
+                    device=dev).to(torch.bfloat16)
+    orig = torch.rand((BATCH, 3, PATCH, PATCH), generator=g, device=dev).to(torch.bfloat16)
+    sa_x.requires_grad_(True)
+    y.requires_grad_(True)
+
+    def sa():
+        model.up_1.sa(sa_x).float().square().mean().backward()
+
+    def tail():
+        z = model.last_cross(torch.cat([model.final_shuf(y), orig], dim=1))
+        model.head(z).float().square().mean().backward()
+
+    model.train()
+    out = {"attention_ms": cuda_ms(sa, reps=10), "tail_ms": cuda_ms(tail, reps=10)}
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def op_device_ms(prof) -> dict:
+    """PyTorch op name -> (self device ms, calls) of a ``torch.profiler``
+    trace, for the ops that launched device work."""
+    out = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", 0.0) / 1e3
+        if ms > 0:
+            out[e.key] = (ms, e.count)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -885,17 +1169,7 @@ def main() -> int:
         bundle = make_bundle(tmp)
         transform, crs = make_scene(tmp / "scene.tif")
         log(f"bundle + scene in {time.perf_counter() - t0:.1f} s")
-        stats_path = tmp / "serve_stats.json"
-        cmd = [sys.executable, "-m", "unet_tpu_torch", "serve", str(bundle),
-               str(tmp / "scene.tif"), str(tmp / "out.tif"),
-               "--patch-size", str(PATCH), "--batch-size", str(BATCH),
-               "--stats-json", str(stats_path)]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=900, env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
-        log(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"serve exited {proc.returncode}")
-        stats = json.loads(stats_path.read_text())
+        stats = serve_cli(bundle, tmp / "scene.tif", tmp / "out.tif", tmp / "serve_stats.json")
         classes = check_class_map(tmp / "out.tif", transform, crs)
         launches = int(stats["launches"]["blend_count"])
         windows = generate_windows(SCENE, SCENE, PATCH, 0.2)
@@ -985,9 +1259,15 @@ def main() -> int:
               f"(sum of per-batch medians)")
         del mos_k, mos_p, batches
 
-        # 6. the training kernels against their plain versions
+        # 5b. the parity + self-attention model: serve cold and warm, bf16
+        # against float32 at 512² and at a side not divisible by 4
+        par_serve = parity_serve_phase(dev, tmp, transform, crs, hwc)
+
+        # 6. the training kernels against their plain versions; the two
+        # PixelShuffleICNR formulations timed against each other
         bn_t = bn_phase(dev, late)
         flip_t = flip_phase(dev, late)
+        shuffle_t = shuffle_phase(dev)
         doctor_launches = doctor_phase()
 
         # 7. the native decoder on the tile set, then train through the
@@ -997,14 +1277,7 @@ def main() -> int:
         log(f"tile set in {time.perf_counter() - t0:.1f} s")
         native_phase(tmp, tiles)
         trained = train_cli_phase(tmp, tiles)
-        cmd = [sys.executable, "-m", "unet_tpu_torch", "serve", str(trained["bundle"]),
-               str(tmp / "scene.tif"), str(tmp / "trained.tif"),
-               "--patch-size", str(PATCH), "--batch-size", str(BATCH)]
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=900, env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
-        log(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"serve of the trained bundle exited {proc.returncode}")
+        serve_cli(trained["bundle"], tmp / "scene.tif", tmp / "trained.tif")
         print(f"trained bundle served the {SCENE}² scene: classes "
               f"{check_class_map(tmp / 'trained.tif', transform, crs)}")
 
@@ -1012,33 +1285,54 @@ def main() -> int:
         inproc = train_inprocess_phase(tiles, tmp)
         trainer = inproc["trainer"]
 
+        # 8b. the parity + self-attention model: train through the CLI and
+        # serve its bundle, then in this process (step time, launches, a
+        # kernel step against a plain step), and its attention and
+        # full-resolution tail timed alone
+        par_cli = parity_train_phase(dev, tmp, tiles, transform, crs)
+        par_in = train_inprocess_phase(tiles, tmp, PARITY_STEPS, parity=True)
+        par_trainer = par_in["trainer"]
+        parts = parity_parts_ms(dev, par_trainer.model)
+        print(f"parity parts alone (fwd+bwd, bf16, CUDA events): self-attention "
+              f"{parts['attention_ms']:.2f} ms = {100 * parts['attention_ms'] / par_in['step_ms']:.1f}% "
+              f"of the {par_in['step_ms']:.2f} ms step; full-resolution tail "
+              f"{parts['tail_ms']:.2f} ms = {100 * parts['tail_ms'] / par_in['step_ms']:.1f}%")
+
         # 9. bf16 vs float32 class maps on one batch of 16 tiles (TF32 off)
-        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         pred32 = Predictor(str(bundle), batch_size=BATCH, device=dev,
                            dtype=torch.float32)
-        x = np.stack([hwc[w.indices()] for w in windows[:BATCH]])
-        cls16 = pred.predict_batch_device(x, argmax_u8=True)
-        cls32 = pred32.predict_batch_device(x, argmax_u8=True)
-        agree = (cls16 == cls32).float().mean().item()
+        agree, _ = class_agreement(pred, pred32,
+                                   np.stack([hwc[w.indices()] for w in windows[:BATCH]]))
         print(f"bf16 vs float32 class maps on {BATCH} tiles: {agree * 100:.3f}% agree")
         if agree < 0.99:
             raise AssertionError(f"bf16 agrees with float32 on only {agree:.4f}")
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         del pred32
 
         # 10. under torch.profiler, after every kernel timing (the profiler
-        # slows later launches): the card's busy time (union of its kernels
-        # and copies) against the wall time of a warm serve, then of a few
-        # train steps
+        # slows later launches): each kernel's device time, then the card's
+        # busy time (union of its kernels and copies) against the wall time
+        # of a warm serve, then of a few train steps, of each topology
+        dev_t = device_times(late)
+        alone = one_op_checks(late)
+        from unet_tpu_torch.ops.probe import empty_kernel
+
+        empty_dev_ms = device_trace(lambda: empty_kernel(dev), "the empty kernel")["ms"]
+        print(f"empty kernel device time (torch.profiler): {empty_dev_ms * 1e3:.2f} us")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        profs = {}
         for what, run in (
                 ("warm serve", lambda: predict_raster(
                     str(bundle), str(tmp / "scene.tif"), str(tmp / "warm.tif"),
                     patch_size=PATCH, batch_size=BATCH, predictor=pred, device=dev)),
                 (f"{PROFILED_STEPS} train steps", lambda: [
                     trainer.train_step(*inproc["host"][i % len(inproc["host"])])
+                    for i in range(PROFILED_STEPS)]),
+                ("parity warm serve", lambda: predict_raster(
+                    str(par_serve["bundle"]), str(tmp / "scene.tif"),
+                    str(tmp / "parity_warm.tif"), patch_size=PATCH, batch_size=BATCH,
+                    predictor=par_serve["pred"], device=dev)),
+                (f"{PROFILED_STEPS} parity train steps", lambda: [
+                    par_trainer.train_step(*par_in["host"][i % len(par_in["host"])])
                     for i in range(PROFILED_STEPS)])):
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts) as prof:
@@ -1046,6 +1340,7 @@ def main() -> int:
                 run()
                 torch.cuda.synchronize()
                 prof_s = time.perf_counter() - t0
+            profs[what] = prof
             busy_s, n_dev = device_busy_s(prof)
             if n_dev:
                 print(f"{what} under torch.profiler: {prof_s:.3f} s; card busy "
@@ -1054,18 +1349,50 @@ def main() -> int:
             else:
                 print(f"{what} under torch.profiler: no device events traced; "
                       "idle share not measured")
-        print(f"where the device time of {PROFILED_STEPS} train steps goes: "
-              + "; ".join(f"{ms:.2f} ms {n}x {k[:60]}" for k, ms, n in top_kernels(prof)))
+        for what in (f"{PROFILED_STEPS} train steps", f"{PROFILED_STEPS} parity train steps"):
+            print(f"where the device time of {what} goes: "
+                  + "; ".join(f"{ms:.2f} ms {n}x {k[:60]}"
+                              for k, ms, n in top_kernels(profs[what])))
+        par_prof = profs[f"{PROFILED_STEPS} parity train steps"]
+        ops = op_device_ms(par_prof)
+        busy_par = device_busy_s(par_prof)[0] * 1e3
+        bn_ms = sum(ms for k, ms, _ in top_kernels(par_prof, n=10 ** 6)
+                    if "partial_kernel" in k or "finish_kernel" in k)
+        named = {"attention products (aten::bmm)":
+                 sum(ops.get(k, (0.0, 0))[0] for k in ("aten::bmm",)),
+                 "attention softmax (aten::_softmax, aten::_softmax_backward_data)":
+                 sum(ops.get(k, (0.0, 0))[0]
+                     for k in ("aten::_softmax", "aten::_softmax_backward_data")),
+                 "bn_stats kernels (partial_kernel, finish_kernel)": bn_ms}
+        print(f"parity train steps, device time by PyTorch op (self, torch.profiler, "
+              f"{PROFILED_STEPS} steps, busy {busy_par:.2f} ms): "
+              + "; ".join(f"{k} {ms:.2f} ms {n}x" for k, (ms, n) in
+                          sorted(ops.items(), key=lambda t: -t[1][0])[:15]))
+        print("parity train steps, named: " + "; ".join(
+            f"{label} {ms:.2f} ms = "
+            + (f"{100 * ms / busy_par:.1f}% of busy" if busy_par else "share not measured")
+            for label, ms in named.items()))
         trainer.close()
-        dev_t = device_times(late)
-        alone = one_op_checks(late)
-        from unet_tpu_torch.ops.probe import empty_kernel
-
-        empty_dev_ms = device_trace(lambda: empty_kernel(dev), "the empty kernel")["ms"]
-        print(f"empty kernel device time (torch.profiler): {empty_dev_ms * 1e3:.2f} us")
+        par_trainer.close()
 
     cuda_src = "unet_tpu_torch/ops/csrc/"
     train_launches = trained["launches"]
+    par_launches = par_cli["launches"]
+    parity = {  # each kernel's launches on the parity paths
+        "blend_count": {"parity_serve_cli": par_serve["launches"],
+                        "parity_serve_warm": par_serve["warm_launches"]},
+        "bn_sum_sumsq": {"parity_train_cli": par_launches["bn_sum_sumsq"],
+                         "parity_train_step": par_in["launches"][0],
+                         "parity_step_ms": dev_t["bn_sum_sumsq"]["parity_ms"],
+                         "parity_step_bound_ms": bn_t["parity_step"]["fwd_bound_ms"]},
+        "bn_bwd_sums": {"parity_train_cli": par_launches["bn_bwd_sums"],
+                        "parity_train_step": par_in["launches"][1],
+                        "parity_step_ms": dev_t["bn_bwd_sums"]["parity_ms"],
+                        "parity_step_bound_ms": bn_t["parity_step"]["bwd_bound_ms"]},
+        "flip_scale": {"parity_train_cli": par_launches["flip_scale"],
+                       "parity_train_step": par_in["launches"][2]},
+        "offset_copy": {"parity_paths": 0},
+    }
     rows = [
         ("blend_count", "blend_count.cu", "unet_tpu/ops/blend.py:108", launches, max_err,
          k_ms, bound_ms, bound_by, {"equal": True, "kernel_us": k3 * 1e3, "plain_us": p3 * 1e3,
@@ -1092,10 +1419,12 @@ def main() -> int:
             kernel_ms, _, ops = row[-1].pop("alone")
             row[-1].update(kernel_device_ms=kernel_ms, device_ops_per_call=ops,
                            redesigned=True)
+    for row in rows:
+        dev_t[row[0]].pop("parity_ms", None)
     kernels = {"kernels": [
         {"name": kname, "route": "cuda", "source": cuda_src + src, "replaces": replaces,
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
-         "bound_by": b_by, "call_ms": call_ms, **extra}
+         "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -152,8 +152,18 @@ def test_topology_guard_raises_on_v2(tmp_path, jax_variables):
         checkpoint.load_bundle(tmp_path / "old")
 
 
-def test_parity_bundle_is_a_later_slice(tmp_path, jax_variables):
-    jax_ckpt.export_bundle(tmp_path / "par", "par", jax_variables,
-                           _manifest(tpu_opt=False, tpu_opt_topology=None))
-    with pytest.raises(NotImplementedError, match="parity topology: later slice"):
-        checkpoint.load_bundle(tmp_path / "par")
+def test_parity_bundle_is_a_later_slice(tmp_path):
+    """Parity bundles, once a later slice, now load: a JAX-written parity +
+    self-attention bundle (no topology version, as JAX writes it) gives the
+    port's parity model, and its weights come back leaf for leaf."""
+    from test_torch_parity import jax_variables
+
+    x = np.zeros((1, 64, 64, 3), np.float32)
+    jm = jax_build_unet("xresnet18", n_out=3, c_in=3, self_attention=True, tpu_opt=False)
+    v = jax_variables(jm, x, np.random.default_rng(0), train=False)
+    jax_ckpt.export_bundle(tmp_path / "par", "par", v,
+                           _manifest(tpu_opt=False, tpu_opt_topology=None,
+                                     self_attention=True))
+    model, manifest = checkpoint.load_bundle(tmp_path / "par", dtype=torch.float32)
+    assert not model.tpu_opt and model.up_1.sa is not None and not model.training
+    _assert_same_tree(checkpoint.to_flax_variables(model.state_dict()), v)

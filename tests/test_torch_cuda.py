@@ -76,11 +76,12 @@ def test_device_mosaic_uses_kernel_on_cuda(dev):
 # --- the training kernels: bn_stats (forward and backward) and flip_scale ---
 
 # (N, C, H, W): the training BatchNorm shapes of the xresnet34 U-Net at
-# batch 16 × 512², then ragged ones (C = 3 and 1, odd N·H·W, H·W not a
-# multiple of the 16-byte load)
+# batch 16 × 512² (tpu_opt, then the parity stem's (32, 256²)), then ragged
+# ones (C = 3 and 1, odd N·H·W, H·W not a multiple of the 16-byte load)
 BN_SHAPES = [(16, 64, 128, 128), (16, 64, 256, 256), (16, 128, 64, 64),
              (16, 128, 128, 128), (16, 256, 32, 32), (16, 256, 128, 128),
-             (16, 512, 16, 16), (3, 3, 37, 41), (5, 1, 17, 13), (2, 7, 3, 5)]
+             (16, 512, 16, 16), (16, 32, 256, 256), (3, 3, 37, 41), (5, 1, 17, 13),
+             (2, 7, 3, 5)]
 
 
 def _bn_inputs(shape, dtype, dev, seed=0):
@@ -153,6 +154,64 @@ def test_train_batch_norm_on_cuda_runs_the_kernels(dev):
     assert out["kernel"][-1] == (1, 1) and out["plain"][-1] == (0, 0)
     for a, b in zip(out["kernel"][:-1], out["plain"][:-1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_parity_sa_train_step_kernels_against_plain(dev):
+    """One float32 train step (TF32 off) of the xresnet18 parity +
+    self-attention U-Net at batch 4 × 64², 3 classes: every BatchNorm
+    through the bn_stats kernels (one forward and one backward launch
+    each), against the same step with their plain versions from the same
+    state and batch, so the two differ only in the order of the BatchNorm
+    sums. Loss within 1e-4 relative; each gradient within 5e-2 relative L2
+    of the plain one, relative to at least 1e-2 of the RMS of all gradients
+    (the chip_smoke.py bar: the deepest BatchNorms see 16 values a channel
+    here, and a bf16 step at this size exceeds it in a 64-value BatchNorm
+    scale); the u vectors updated alike."""
+    from unet_tpu_torch.models import build_unet, init_weights
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import bn
+    from unet_tpu_torch.train.losses import cross_entropy
+
+    model = build_unet("xresnet18", n_out=3, c_in=3, self_attention=True, tpu_opt=False,
+                       dtype=torch.float32)
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.up_1.sa.gamma.fill_(0.5)
+    model.to(dev).train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((4, 3, 64, 64), generator=g, device=dev)
+    y = torch.randint(0, 3, (4, 64, 64), generator=g, device=dev)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, red in (("kernel", bn.KERNEL_REDUCTIONS), ("plain", bn.PLAIN_REDUCTIONS)):
+            model.load_state_dict(state)
+            for m in bns:
+                m.reductions = red
+            for p in model.parameters():
+                p.grad = None
+            before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+            logits = model(x, fold_logits=True)
+            loss = cross_entropy(logits, y)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = (bn.bn_sum_sumsq.launches - before[0], bn.bn_bwd_sums.launches - before[1])
+            out[name] = (loss.item(), [p.grad.float().clone() for p in model.parameters()],
+                         model.up_1.sa.value_u.clone(), launched, logits.shape)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert out["kernel"][3] == (len(bns), len(bns)) and out["plain"][3] == (0, 0)
+    assert out["kernel"][4] == (4, 3, 64, 64)
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-4 * abs(out["plain"][0])
+    gk, gp = out["kernel"][1], out["plain"][1]
+    g_rms = (sum(float(a.pow(2).sum()) for a in gp) / sum(a.numel() for a in gp)) ** 0.5
+    for a, b in zip(gk, gp):
+        rms = float(b.norm()) / b.numel() ** 0.5
+        assert float((a - b).norm()) / b.numel() ** 0.5 <= 5e-2 * max(rms, 1e-2 * g_rms)
+    torch.testing.assert_close(out["kernel"][2], out["plain"][2], rtol=1e-5, atol=1e-6)
 
 
 FLIP_IMAGE_DTYPES = [torch.uint8, torch.uint16, torch.int16, torch.float32]

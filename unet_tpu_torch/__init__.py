@@ -2,8 +2,10 @@
 
 The JAX package stays the reference; this package mirrors its module
 layout and names so each counterpart is easy to find, and imports neither
-JAX nor anything of ``unet_tpu``. It trains and serves the tpu_opt U-Net
-(``python -m unet_tpu_torch train``, ``serve``) and checks a machine
+JAX nor anything of ``unet_tpu``. It trains and serves the U-Net in both
+topologies, tpu_opt and the reference-shaped parity one, with or without
+self-attention (``python -m unet_tpu_torch train``, ``serve``), imports
+fastai-trained models (``import-model``) and checks a machine
 (``doctor``), with hand-written CUDA kernels under ``ops/csrc/`` and the
 native tile decoder under ``native/``.
 

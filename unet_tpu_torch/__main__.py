@@ -1,13 +1,18 @@
-"""CLI front-end: ``python -m unet_tpu_torch <train|serve|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <train|serve|import-model|doctor> ...``.
 
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch serve models/run1 scene.tif out.tif
+    python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
 
 Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
-``train`` and ``serve`` also take ``--device`` (default ``cuda``) and
-``--stats-json`` (write the run's timings, kernel launch counts and, for
-``train``, the loader's decode path to a JSON file); both compute in bf16.
+``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
+``--self-attention`` in either), ``serve`` (any bundle: tpu_opt, parity,
+imported) and ``import-model`` (a fastai DynamicUnet state_dict → a parity
+bundle) also take ``--device`` (default ``cuda``); ``train`` and ``serve``
+take ``--stats-json`` (write the run's timings, kernel launch counts and,
+for ``train``, the loader's decode path to a JSON file); both compute in
+bf16.
 ``doctor`` checks whether this machine is ready: versions, the CUDA
 device, the nvcc toolchain, the native decoder and, with ``--kernels``
 (also spelled ``--pallas``, as in ``unet_tpu``), every CUDA kernel against
@@ -43,12 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--lr", type=float, default=1e-4)
     tr.add_argument("--regression", action="store_true", help="not yet ported")
     tr.add_argument("--class-weights", default="even")
-    tr.add_argument("--self-attention", action="store_true", help="not yet ported")
+    tr.add_argument("--self-attention", action="store_true",
+                    help="self-attention in the third-from-last decoder block")
     tr.add_argument("--existing-model", default=None, help="not yet ported")
     tr.add_argument("--lr-finder", default=None, help="not yet ported")
     tr.add_argument("--pretrained-weights", default=None, help="not yet ported")
     tr.add_argument("--tpu-opt", action=argparse.BooleanOptionalAction, default=True,
-                    help="the tpu_opt topology (--no-tpu-opt: not yet ported)")
+                    help="the tpu_opt topology (default); --no-tpu-opt trains the "
+                         "reference-shaped parity topology (also chosen for tiles "
+                         "whose sides are not divisible by 4)")
     tr.add_argument("--grad-accum", type=int, default=1, help="> 1: not yet ported")
     tr.add_argument("--seed", type=int, default=0)
     tr.add_argument("--reference-quirks", action="store_true", help="not yet ported")
@@ -92,6 +100,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write windows, batches, seconds, tiles/s, forward "
                          "ms per batch and kernel launch counts here")
 
+    im = sub.add_parser(
+        "import-model",
+        help="convert a full trained fastai DynamicUnet state_dict (.pth) into "
+             "a prediction-ready model bundle (save the .pth on any fastai "
+             "machine with torch.save(learn.model.state_dict(), path))")
+    im.add_argument("state_dict", help="path to the torch .pth file")
+    im.add_argument("bundle", help="output bundle directory (model_path/description)")
+    im.add_argument("--description", default=None,
+                    help="bundle name (default: bundle dir name)")
+    im.add_argument("--patch-size", type=int, default=400,
+                    help="tile size the model was trained at (reference default 400)")
+    im.add_argument("--regression", action="store_true")
+    im.add_argument("--codes", nargs="*", default=None, help="class names, for the manifest")
+    im.add_argument("--dtype", default="int8",
+                    help="training-data dtype for predict-time scaling "
+                         "(int8|uint8|int16|float32; reference rule)")
+    im.add_argument("--device", default="cuda",
+                    help="torch device the weights are loaded and checked on "
+                         "(default cuda; cpu only when asked)")
+
     dr = sub.add_parser("doctor", help="diagnose the environment: versions, CUDA "
                                        "device, nvcc, native decoder, kernels")
     dr.add_argument("--kernels", "--pallas", dest="kernels", action="store_true",
@@ -134,12 +162,19 @@ def _dispatch(args) -> int:
 
         results = run_doctor(kernels=args.kernels)
         return 0 if all(ok for ok, _ in results.values()) else 1
+    if args.command == "import-model":
+        from .models.torch_import import import_model_cli
+
+        import_model_cli(args.state_dict, args.bundle, description=args.description,
+                         patch_size=args.patch_size, regression=args.regression,
+                         codes=args.codes, dtype_str=args.dtype, device=args.device)
+        return 0
     return _train(args) if args.command == "train" else _serve(args)
 
 
 UNPORTED_TRAIN_ARGS = (
-    ("regression", "--regression"), ("self_attention", "--self-attention"),
-    ("existing_model", "--existing-model"), ("lr_finder", "--lr-finder"),
+    ("regression", "--regression"), ("existing_model", "--existing-model"),
+    ("lr_finder", "--lr-finder"),
     ("pretrained_weights", "--pretrained-weights"),
     ("reference_quirks", "--reference-quirks"), ("profile_dir", "--profile-dir"),
     ("coordinator", "--coordinator"), ("num_processes", "--num-processes"),
@@ -152,8 +187,6 @@ def _train(args) -> int:
     for attr, flag in UNPORTED_TRAIN_ARGS:
         if getattr(args, attr) is not None and getattr(args, attr) is not False:
             raise NotImplementedError(f"{flag} is not yet ported")
-    if not args.tpu_opt:
-        raise NotImplementedError("--no-tpu-opt (the parity topology) is not yet ported")
     if args.grad_accum > 1:
         raise NotImplementedError("--grad-accum > 1 is not yet ported")
     cw = args.class_weights
@@ -163,6 +196,7 @@ def _train(args) -> int:
                         description=args.description, codes=args.codes,
                         arch=args.arch, batch_size=args.batch_size,
                         epochs=args.epochs, lr=args.lr, class_weights=cw,
+                        tpu_opt=args.tpu_opt, self_attention=args.self_attention,
                         seed=args.seed, device=args.device)
     trainer = Trainer(cfg)
     t0 = time.perf_counter()

@@ -1,13 +1,14 @@
 """Building-block layers of the U-Net, NCHW.
 
-Counterparts of ``unet_tpu/models/layers.py`` for the tpu_opt topology:
-ConvLayer (conv → [BatchNorm] → [ReLU] with torch-style symmetric
-padding), the Bag-of-Tricks ResBlock, the k2-s2 transposed-conv upsample,
-and the space/depth permutations. Parameters stay float32; each conv runs
-in the dtype of its input (bf16 on the card, float32 in the tests), as
-flax's ``dtype=`` does. Attribute names match the flax module names so a
-state_dict key maps one to one onto a flax parameter path
-(``train/checkpoint.py``).
+Counterparts of ``unet_tpu/models/layers.py``: ConvLayer (conv →
+[BatchNorm] → [ReLU] with torch-style symmetric padding), the
+Bag-of-Tricks ResBlock, the k2-s2 transposed-conv upsample (tpu_opt), the
+PixelShuffle-ICNR upsample with fastai's replication blur (parity), the
+spectral-normed SelfAttention, and the space/depth permutations.
+Parameters stay float32; each conv runs in the dtype of its input (bf16 on
+the card, float32 in the tests), as flax's ``dtype=`` does. Attribute
+names match the flax module names so a state_dict key maps one to one onto
+a flax parameter path (``train/checkpoint.py``).
 
 Training-mode BatchNorm follows flax's (momentum 0.9, biased running
 variance), not ``nn.BatchNorm2d`` (its running variance is the unbiased
@@ -16,6 +17,7 @@ one).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -205,3 +207,95 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
         idx = ((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).floor()
         x = x.index_select(dim, idx.long().clamp_(max=m - 1).to(x.device))
     return x
+
+
+def replication_blur(x: torch.Tensor) -> torch.Tensor:
+    """fastai's anti-checkerboard blur: ReplicationPad2d((1, 0, 1, 0)), then
+    AvgPool2d(2, stride=1). Shape-preserving."""
+    return F.avg_pool2d(F.pad(x, (1, 0, 1, 0), mode="replicate"), 2, 1)
+
+
+class PixelShuffleICNR(nn.Module):
+    """fastai PixelShuffle_ICNR with the reference's effective config: a
+    1x1 conv with bias and no norm (ICNR init, ``init_weights``) →
+    PixelShuffle(2) in (c, dy, dx) channel order → ReLU → [blur]. The conv
+    keeps the flax parameter shapes (``conv/kernel`` (1, 1, ni, 4·nf),
+    ``conv/bias`` (4·nf)).
+
+    The JAX package computes the conv and the shuffle as one k2-s2
+    transposed conv with a per-phase bias (``_ShuffleConv``), the same
+    function; on the H100 the conv + shuffle is the faster of the two
+    (``chip_smoke.py`` times both at the parity model's upsamples)."""
+
+    def __init__(self, ni: int, nf: int, blur: bool = False):
+        super().__init__()
+        self.conv = Conv2d(ni, nf * 4, 1, bias=True)
+        self.blur = blur
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = pixel_shuffle(F.relu(self.conv(x)), 2)
+        return replication_blur(y) if self.blur else y
+
+
+def _normalize(v: torch.Tensor, eps: float) -> torch.Tensor:
+    return v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+
+
+class SelfAttention(nn.Module):
+    """SAGAN-style self-attention over the spatial tokens (fastai
+    SelfAttention): query and key projections to C/8, value to C, each
+    spectral-normed; ``out = γ·(softmax over the source tokens of f·gᵀ)ᵀ·h
+    + x``.
+
+    Parameters keep flax's shapes: ``{query,key,value}_kernel`` (in, out)
+    and ``gamma`` (1,). The power-iteration vectors ``{query,key,value}_u``
+    (out,) are buffers (flax keeps them in ``batch_stats``), so the
+    optimizer never sees them. Training mode runs one power-iteration step
+    (v = normalize(K·u), u = normalize(vᵀ·K), both without gradient) and
+    writes u back; eval mode recomputes v from the stored u. σ = vᵀ·K·u;
+    each projection uses K / σ.
+
+    The scores are taken in float32 from the compute-dtype projections,
+    the softmax runs over the source tokens (JAX's axis 1, no 1/√d scale;
+    here the scores are laid out [b, target, source] so that it runs over
+    the contiguous last dim), and the output is γ·o + tokens in float32,
+    cast back. The weighted sum of the values takes the softmax in the
+    compute dtype; its bf16 product rounds to bf16 on the card (one
+    rounding that JAX's float32 ``preferred_element_type`` skips; none in
+    float32)."""
+
+    eps = 1e-12
+
+    def __init__(self, c: int):
+        super().__init__()
+        nq = max(c // 8, 1)
+        for name, nf in (("query", nq), ("key", nq), ("value", c)):
+            self.register_parameter(f"{name}_kernel", nn.Parameter(torch.zeros(c, nf)))
+            self.register_buffer(f"{name}_u", torch.full((nf,), 1 / math.sqrt(nf)))
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def _weight(self, name: str) -> torch.Tensor:
+        k = getattr(self, f"{name}_kernel")
+        u = getattr(self, f"{name}_u")
+        if self.training:
+            with torch.no_grad():
+                v = _normalize(k @ u, self.eps)
+                u = _normalize(v @ k, self.eps)
+                getattr(self, f"{name}_u").copy_(u)
+        else:
+            v = _normalize(k @ u, self.eps)
+        sigma = v @ k @ u
+        return k / torch.clamp(sigma, min=self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        dt = x.dtype
+        tokens = x.flatten(2).transpose(1, 2)                    # (b, hw, c)
+        f = tokens @ self._weight("query").to(dt)
+        g = tokens @ self._weight("key").to(dt)
+        v = tokens @ self._weight("value").to(dt)
+        s = torch.bmm(g.float(), f.float().transpose(1, 2))      # [b, j, i]
+        beta = torch.softmax(s, dim=2)                           # over sources i
+        o = torch.bmm(beta.to(dt), v).float()                    # [b, j, c]
+        out = self.gamma * o + tokens.float()
+        return out.to(dt).transpose(1, 2).reshape(b, c, h, w)

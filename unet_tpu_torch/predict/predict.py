@@ -42,13 +42,18 @@ def make_probs_fn(model, regression: bool):
     """``fn(x)`` mapping a scaled (B,C,H,W) batch to (B,n_out,H,W)
     probabilities, or (B,1,H,W) values in regression mode.
 
-    The softmax runs in the sub-pixel head's folded layout — (B, n_out·4,
-    H/2, W/2) viewed as (B, n_out, 4, H/2, W/2), over the class axis — and
-    one pixel shuffle of finished probabilities follows; per pixel it
-    reduces over the same values as a full-resolution softmax."""
+    The branch follows the logits' shape, as in the JAX package. A tpu_opt
+    model returns the sub-pixel head's folded logits: the softmax runs in
+    that layout — (B, n_out·4, H/2, W/2) viewed as (B, n_out, 4, H/2, W/2),
+    over the class axis — and one pixel shuffle of finished probabilities
+    follows; per pixel it reduces over the same values as a
+    full-resolution softmax. A parity model returns full-resolution logits
+    (B, n_out, H, W): the softmax runs over the classes as they are."""
 
     def probs_fn(x: torch.Tensor) -> torch.Tensor:
         logits = model(x, fold_logits=True)
+        if logits.shape[-1] == x.shape[-1]:
+            return logits[:, 0:1] if regression else torch.softmax(logits, dim=1)
         b, crr, h2, w2 = logits.shape
         if regression:
             return pixel_shuffle(logits, 2)[:, 0:1]

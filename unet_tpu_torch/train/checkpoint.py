@@ -8,9 +8,11 @@ writes, read and written without JAX.
 Weights carry over between the flax tree and a torch ``state_dict`` with
 ``from_flax_variables`` / ``to_flax_variables`` (numpy arrays throughout):
 conv kernels HWIO ↔ OIHW, BatchNorm scale/bias/mean/var ↔
-weight/bias/running_mean/running_var, and the transposed-conv kernel
+weight/bias/running_mean/running_var, the transposed-conv kernel
 (kh, kw, in, out) ↔ (in, out, kh, kw) flipped in both spatial dims (flax's
-``ConvTranspose`` does not flip its kernel; torch's transposed conv does).
+``ConvTranspose`` does not flip its kernel; torch's transposed conv does),
+and SelfAttention's ``*_kernel`` and ``gamma`` params and ``*_u``
+batch_stats as they are (parameters and buffers of the same names).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..io import msgpack_codec
-from ..models.unet import PARITY_LATER, TPU_OPT_TOPOLOGY_VERSION, build_unet
+from ..models.unet import TPU_OPT_TOPOLOGY_VERSION, build_unet
 
 
 def save_manifest(path: Union[str, Path], manifest: Dict[str, Any]) -> None:
@@ -91,6 +93,9 @@ def from_flax_variables(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             sd[f"{key}.weight"] = np.asarray(leaves["scale"])
             sd[f"{key}.bias"] = np.asarray(leaves["bias"])
             continue
+        if "kernel" not in leaves:  # SelfAttention: *_kernel and gamma
+            sd.update({".".join((*path, k)): np.asarray(a) for k, a in leaves.items()})
+            continue
         k = np.asarray(leaves["kernel"])
         if path[-1] == "convt":
             sd[f"{key}.weight"] = np.ascontiguousarray(
@@ -101,6 +106,9 @@ def from_flax_variables(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             sd[f"{key}.bias"] = np.asarray(leaves["bias"])
     for path, leaves in _walk(tree.get("batch_stats", {})):
         key = ".".join(path)
+        if "mean" not in leaves:  # SelfAttention's power-iteration vectors
+            sd.update({".".join((*path, k)): np.asarray(a) for k, a in leaves.items()})
+            continue
         sd[f"{key}.running_mean"] = np.asarray(leaves["mean"])
         sd[f"{key}.running_var"] = np.asarray(leaves["var"])
     return sd
@@ -121,8 +129,8 @@ def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     stats: Dict[str, Any] = {}
     for key, v in state_dict.items():
         a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-        mod, name = key.rsplit(".", 1)
-        path = mod.split(".")
+        mod, _, name = key.rpartition(".")
+        path = mod.split(".") if mod else []
         if mod in bn_modules:
             if name in ("running_mean", "running_var"):
                 _set(stats, path, name[len("running_"):], a)
@@ -134,6 +142,8 @@ def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
             else:
                 k = a.transpose(2, 3, 1, 0)
             _set(params, path, "kernel", np.ascontiguousarray(k))
+        elif name.endswith("_u"):  # SelfAttention's power-iteration vectors
+            _set(stats, path, name, a)
         else:
             _set(params, path, name, a)
     return {"params": params, "batch_stats": stats}
@@ -141,18 +151,20 @@ def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
 
 def load_bundle(bundle: Union[str, Path], best: bool = False,
                 dtype: torch.dtype = torch.bfloat16):
-    """(model, manifest): the eval-mode U-Net with the bundle's weights (on
-    the CPU, float32 parameters, computing in ``dtype``)."""
+    """(model, manifest): the eval-mode U-Net of the topology the manifest
+    records (tpu_opt, or parity when ``tpu_opt`` is false or absent, as the
+    JAX loader reads it) with the bundle's weights (on the CPU, float32
+    parameters, computing in ``dtype``)."""
     d, manifest_path, weights_path = bundle_paths(bundle)
     manifest = load_manifest(manifest_path)
-    if not manifest.get("tpu_opt"):
-        raise NotImplementedError(PARITY_LATER)
+    tpu_opt = bool(manifest.get("tpu_opt", False))
     v = manifest.get("tpu_opt_topology", 1)
-    if v != TPU_OPT_TOPOLOGY_VERSION:
+    if tpu_opt and v != TPU_OPT_TOPOLOGY_VERSION:
         raise ValueError(
             f"Bundle {d} was trained with tpu_opt topology v{v}; this "
             f"build uses v{TPU_OPT_TOPOLOGY_VERSION} (parameter shapes "
-            "differ). Retrain, or load with the matching framework version.")
+            "differ). Retrain, or load with the matching framework version. "
+            "(The parity topology, tpu_opt=False, is stable across versions.)")
     best_path = d / "best-model.msgpack"
     if best and best_path.exists():
         weights_path = best_path
@@ -161,7 +173,7 @@ def load_bundle(bundle: Union[str, Path], best: bool = False,
         n_out=int(manifest["n_out"]),
         c_in=int(manifest["number_of_bands"]),
         self_attention=bool(manifest.get("self_attention", False)),
-        tpu_opt=True,
+        tpu_opt=tpu_opt,
         dtype=dtype,
     )
     sd = from_flax_variables(load_weights(weights_path))

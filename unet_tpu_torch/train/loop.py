@@ -1,11 +1,16 @@
-"""The training engine: one-cycle fit of the tpu_opt U-Net on one device.
+"""The training engine: one-cycle fit of the U-Net on one device.
 
-Counterpart of ``unet_tpu/train/loop.py`` for its default path:
+Counterpart of ``unet_tpu/train/loop.py`` for its default path, in both
+topologies (tpu_opt, the default, and parity, ``tpu_opt=False``; tiles
+whose sides are not divisible by 4 fall back to parity before the model
+is built, as the JAX trainer does), with or without self-attention:
 
 * a train step = uint8 tiles to the device → flip + scale
   (``fused_flip_scale``) → bf16 forward in training mode (every BatchNorm
-  through the ``bn_stats`` kernels) → class-weighted cross-entropy on the
-  folded logits → backward → fastai Adam under the one-cycle schedule;
+  through the ``bn_stats`` kernels, every SelfAttention advancing its
+  power iteration) → class-weighted cross-entropy on the folded logits
+  (tpu_opt) or the full-resolution ones (parity) → backward → fastai Adam
+  under the one-cycle schedule;
 * validation after every epoch on full-resolution logits, with padded
   samples masked out, and ``dice_multi`` over the epoch;
 * SaveModelCallback: the best epoch's weights (by ``monitor``) are kept and
@@ -16,16 +21,16 @@ Counterpart of ``unet_tpu/train/loop.py`` for its default path:
   msgpack weights, ``best-model.msgpack`` and ``<desc>_history.csv``.
 
 The LR finder, transfer learning and pretrained encoders, gradient
-accumulation, regression, the parity topology, self-attention, resume and
-step checkpoints, multi-process training and profiling are not ported yet;
-``TrainerConfig`` has no fields for them.
+accumulation, regression, resume and step checkpoints, multi-process
+training and profiling are not ported yet; ``TrainerConfig`` has no fields
+for them.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -71,6 +76,8 @@ class TrainerConfig:
     class_zero: bool = False
     normalize: str = "reference"
     bf16: bool = True
+    tpu_opt: bool = True
+    self_attention: bool = False
     seed: int = 0
     loader_threads: int = 8
     device: str = "cuda"
@@ -116,11 +123,16 @@ class Trainer:
         self.c_in = sample_img.shape[0]
         self.tile_hw = sample_img.shape[1:]
         self.n_out = len(cfg.codes)
-        if self.tile_hw[0] % 4 or self.tile_hw[1] % 4:
-            raise NotImplementedError(
-                f"tile size {self.tile_hw} is not divisible by 4: the parity "
-                "topology it needs is not yet ported")
+        if cfg.tpu_opt and (self.tile_hw[0] % 4 or self.tile_hw[1] % 4):
+            # decided here, before the model is built, so the manifest
+            # stamps the topology actually trained
+            print(f"Tile size {self.tile_hw} not divisible by 4: tpu_opt "
+                  "topology unavailable — using the parity topology "
+                  "(tpu_opt=False). Pad tiles to a multiple of 4 to use the "
+                  "TPU-optimized decoder.")
+            cfg = self.cfg = replace(cfg, tpu_opt=False)
         self.model = build_unet(cfg.arch, n_out=self.n_out, c_in=self.c_in,
+                                self_attention=cfg.self_attention, tpu_opt=cfg.tpu_opt,
                                 dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
         self.class_weights = resolve_class_weights(cfg.class_weights, cfg.codes,
                                                    self.data_path)
@@ -176,12 +188,16 @@ class Trainer:
 
     def loss_and_grads(self, images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         """Training-mode forward on scaled float images, the loss on the
-        folded logits, and its backward into the parameters' ``.grad``."""
+        logits (in the folded layout where the model returns sub-pixel
+        logits, tpu_opt; as they are where it returns full-resolution ones,
+        parity), and its backward into the parameters' ``.grad``."""
         self.model.train()
         for p in self.model.parameters():
             p.grad = None
-        logits, targets = fold_loss_layout(self.model(images, fold_logits=True), masks)
-        loss = self.loss_fn(logits, targets)
+        logits = self.model(images, fold_logits=True)
+        if logits.shape[-1] != masks.shape[-1]:
+            logits, masks = fold_loss_layout(logits, masks)
+        loss = self.loss_fn(logits, masks)
         loss.backward()
         return loss.detach()
 
@@ -287,7 +303,7 @@ class Trainer:
             "CLASS_WEIGHTS": cfg.class_weights if isinstance(cfg.class_weights, str)
             else list(cfg.class_weights),
             "loss_func": cfg.loss_func,
-            "self_attention": False,
+            "self_attention": cfg.self_attention,
             "monitor": self.monitor,
             "VALID_SCENES": list(cfg.valid_scenes),
             "ARCHITECTURE": cfg.arch,
@@ -297,8 +313,8 @@ class Trainer:
             "class_zero": cfg.class_zero,
             "n_out": self.n_out,
             "c_in": self.c_in,
-            "tpu_opt": True,
-            "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION,
+            "tpu_opt": cfg.tpu_opt,
+            "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION if cfg.tpu_opt else None,
             "dtype_str": self.dtype_str,
             "normalize": cfg.normalize,
             "resolved_class_weights": list(self.class_weights),
