@@ -51,14 +51,15 @@ Phases (any failure raises and the script exits nonzero), in this order:
      Python codec on every tile and on a few tiles rewritten with LZW,
      deflate, PackBits and JPEG (JPEG segments decode natively in both, as
      in the JAX package; the pure-Python JPEG decoder within 2 levels), and
-     the decode ms of a 16-tile batch each way; then train through ``python -m unet_tpu_torch train`` in a subprocess: the
-     tpu_opt xresnet34 U-Net, random init from seed 0, 2 epochs over a
-     seeded synthetic 512² tile set (64 train + 16 valid tiles, 3 classes
-     that are a function of the image), batch 16, bf16; the history must
-     be finite and every train-step kernel launched as many times as the
-     steps say; then the exported bundle serves the 4096² scene of phase 4
-     through ``python -m unet_tpu_torch serve``; the loader's decode path
-     and first-batch times come back in the stats file;
+     the decode ms of a 16-tile batch each way; then train through
+     ``python -m unet_tpu_torch train`` in a subprocess: the tpu_opt
+     xresnet34 U-Net, random init from seed 0, 1 epoch over a seeded
+     synthetic 512² tile set (64 train + 16 valid tiles, 3 classes that are
+     a function of the image), batch 16, bf16; the history must be finite
+     and every train-step kernel launched as many times as the steps say;
+     then the exported bundle serves the 4096² scene of phase 4 in this
+     process; the loader's decode path and first-batch times come back in
+     the stats file;
   8. train in this process: step milliseconds and tiles/s, the per-step
      launch counts (43 / 43 / 1), and one step with the kernels against one
      with their plain versions from the same state, batch and flags (loss
@@ -69,10 +70,30 @@ Phases (any failure raises and the script exits nonzero), in this order:
      train --no-tpu-opt --self-attention`` for 1 epoch (4 steps and a
      validation batch; launches 43 a step for each bn_stats kernel, one
      flip_scale a batch; the exported u vectors moved from their init) and
-     its bundle served; then in this process the step time, the per-step
-     launches and a kernel step against a plain step (the bars of 8), and
-     the self-attention and the full-resolution tail timed alone;
+     its bundle served in this process; then in this process the step
+     time, the per-step launches and a kernel step against a plain step
+     (the bars of 8), and the self-attention and the full-resolution tail
+     timed alone;
   9. bf16 vs float32 class maps on one batch of 16 tiles (>= 99% agree);
+     9b. the reference pipeline at full width: the scene's labels written
+     as a mask GeoTIFF; ``python -m unet_tpu_torch tile`` cuts the scene
+     and mask into 512² tiles (overlap 0.2, split 0.8 / 0.2, seed 0; the
+     trai / vali layout and every tile on the scene's grid checked) and,
+     side by side, the prediction tiles (no mask, max_empty 1.0); the
+     flagship trains 1 epoch on them with the weighted focal loss (launch
+     counts set to 0 before and read after), and a focal kernel step is
+     held against a plain step (the bars of 8); ``python -m unet_tpu_torch
+     predict --merge`` runs on the host and with ``--device-merge``: both
+     mosaics uint8 4096², georeferenced like the scene, >= 99.99% equal
+     (bit-equal as a rule), the device merge >= 99.99% equal to serve in
+     float32 (TF32 off; bf16 printed); in this process each mode's tiles/s,
+     merge finalize seconds and blend_count launches (7 on the device
+     merge, 0 on the host's);
+     9c. the quality gate of tests/test_quality_parity.py on the card, field
+     for field (the fixture's 384² scene, 128² tiles, xresnet18, weighted
+     focal, float32, ``save_predictions(merge=True)``): parity at 14
+     epochs and tpu_opt at 20 on seeds 0 and 1 held to the JAX floors,
+     seed 2 measured against them, then tpu_opt seed 0 in bf16, printed;
   10. last, as the profiler slows later launches: the device time of every
      kernel, its plain version and its library call at the shapes above
      (the union of the traced device intervals, host overhead left out;
@@ -84,7 +105,9 @@ Phases (any failure raises and the script exits nonzero), in this order:
      its GB/s against the bytes bound; then a warm serve and a few train
      steps of each topology under torch.profiler for the card's idle share,
      with the parity step's device time by kernel and by PyTorch op (the
-     attention products and softmax named).
+     attention products and softmax named), and of a device-merge predict;
+     bn_sum_sumsq and bn_bwd_sums alone at the parity stem's (16, 32, 256²)
+     site by device time, beside their bounds.
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network; work files go to a
 temporary directory inside the checkout and are removed at the end.
@@ -93,6 +116,8 @@ temporary directory inside the checkout and are removed at the end.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import importlib.util
 import json
 import os
 import re
@@ -121,7 +146,8 @@ BN_SITES = [(64, 128, 7), (64, 256, 1), (128, 64, 10), (128, 128, 2),
 BN_SITES_PARITY = [(32, 256, 2), (64, 256, 2), (64, 128, 7), (128, 64, 10),
                    (256, 32, 14), (512, 16, 8)]
 BN_RAGGED = [(3, 3, 37, 41), (5, 1, 17, 13)]  # (N, C, H, W): C = 3 and 1, odd N·H·W
-TRAIN_EPOCHS = 2      # CLI training: 2 epochs of 64 // 16 = 4 steps
+PARITY_STEM_SITE = (32, 256)  # (C, H = W): read alone for its device time
+TRAIN_EPOCHS = 1      # CLI training: 1 epoch of 64 // 16 = 4 steps
 TRAIN_STEPS = 6       # in-process timed steps
 PROFILED_STEPS = 3
 GRAD_REL_L2 = 5e-2    # kernel vs plain step, per parameter tensor (bf16 convs)
@@ -139,6 +165,22 @@ SA_GAMMA = 0.5        # γ = 0 (its init) would make the attention an identity
 PARITY_ODD = 402      # a window side not divisible by 4: the resize path
 PARITY_EPOCHS = 1     # CLI training: 1 epoch of 64 // 16 = 4 steps
 PARITY_STEPS = 6      # in-process timed parity steps
+PIPE_EPOCHS = 1       # the pipeline's focal training: 1 epoch of the tiled scene
+PIPE_STEPS = 3        # in-process focal steps before its kernel-vs-plain step
+AGREE = 0.9999        # the pipeline's mosaics: host merge, device merge, serve
+# the quality gate of tests/test_quality_parity.py, field for field
+GATE_SIZE, GATE_TILE = 384, 128
+GATE_TRANSFORM = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
+GATE_CODES = ["nodata", "ground", "trees", "buildings", "water"]
+GATE_FLOORS = {"parity": (0.93, 0.93), "tpu_opt": (0.90, 0.93)}  # dice, mIoU
+# (topology, seed, epochs, bf16, floors held). tpu_opt seed 2 is measured
+# against the floors but not held: its best validation dice swings with the
+# float summation order (a few false-positive pixels of a class absent from
+# the 4 validation tiles cost a fifth of dice_multi), in the JAX package too
+# (PERF.md §6). bf16 has no floor.
+GATE_RUNS = [("parity", 0, 14, False, True), ("tpu_opt", 0, 20, False, True),
+             ("tpu_opt", 1, 20, False, True), ("tpu_opt", 2, 20, False, False),
+             ("tpu_opt", 0, 20, True, False)]
 
 
 def log(msg: str) -> None:
@@ -291,6 +333,16 @@ def serve_cli(bundle: Path, scene: Path, out: Path, stats_path=None) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"serve of {bundle.name} exited {proc.returncode}")
     return json.loads(Path(stats_path).read_text()) if stats_path is not None else {}
+
+
+def serve_inprocess(bundle: Path, scene: Path, out: Path) -> None:
+    """Serve ``scene`` with ``bundle`` in this process (``predict_raster``
+    with a fresh bf16 predictor), the class map written to ``out``."""
+    from unet_tpu_torch.predict.predict import Predictor, predict_raster
+
+    pred = Predictor(str(bundle), batch_size=BATCH, device="cuda")
+    predict_raster(str(bundle), str(scene), str(out), patch_size=PATCH, batch_size=BATCH,
+                   predictor=pred, device=pred.device)
 
 
 def blend_bound_ms(n, c, th, tw, rows, cols) -> tuple:
@@ -513,6 +565,8 @@ def bn_phase(dev, late: list) -> dict:
                    torch.ops.aten.batch_norm_backward_reduce(*a, True, True, True))}
         late += [{"kernel": "bn_sum_sumsq", "count": count, "parity_count": pcount, "fns": fwd},
                  {"kernel": "bn_bwd_sums", "count": count, "parity_count": pcount, "fns": bwd}]
+        if (c, shape[2]) == PARITY_STEM_SITE:
+            stem = {"shape": list(shape), "fwd": fwd["ms"], "bwd": bwd["ms"]}
         t = {"fwd_ms": cuda_ms(fwd["ms"]), "fwd_plain_ms": cuda_ms(fwd["plain_ms"]),
              "fwd_lib_ms": cuda_ms(fwd["library_ms"]), "bwd_ms": cuda_ms(bwd["ms"]),
              "bwd_plain_ms": cuda_ms(bwd["plain_ms"]), "bwd_lib_ms": cuda_ms(bwd["library_ms"]),
@@ -521,6 +575,8 @@ def bn_phase(dev, late: list) -> dict:
         for k, v in t.items():
             step[k] += count * v
             pstep[k] += pcount * v
+        if (c, shape[2]) == PARITY_STEM_SITE:
+            stem.update(t)
         print(f"bn_stats {shape} bf16 x{count} tpu_opt, x{pcount} parity: fwd "
               f"{t['fwd_ms'] * 1e3:.1f} us (plain {t['fwd_plain_ms'] * 1e3:.1f}, "
               f"batch_norm_stats {t['fwd_lib_ms'] * 1e3:.1f}, bound "
@@ -534,7 +590,25 @@ def bn_phase(dev, late: list) -> dict:
               f"{tot['bwd_ms']:.3f} ms, plain {tot['bwd_plain_ms']:.3f}, library "
               f"{tot['bwd_lib_ms']:.3f}, bound {tot['bwd_bound_ms']:.3f}")
     print(f"bn_stats: {len(cases)} cases within 1e-6 of float64 and bit-stable")
-    return {**step, "parity_step": pstep, "fwd_err": worst["fwd"], "bwd_err": worst["bwd"]}
+    return {**step, "parity_step": pstep, "fwd_err": worst["fwd"], "bwd_err": worst["bwd"],
+            "stem": stem}
+
+
+def stem_site_device(stem: dict) -> dict:
+    """Device time (torch.profiler, ``device_trace``) of one bn_sum_sumsq
+    and one bn_bwd_sums call alone at the parity stem's site, beside their
+    bytes bounds; a kernel under half of its bound's speed is named."""
+    out = {}
+    for key, name in (("fwd", "bn_sum_sumsq"), ("bwd", "bn_bwd_sums")):
+        ms = device_trace(stem[key], f"{name} {stem['shape']} bf16")["ms"]
+        bound = stem[f"{key}_bound_ms"]
+        out[name] = {"shape": stem["shape"], "device_ms": ms, "bound_ms": bound,
+                     "call_ms": stem[f"{key}_ms"], "share_of_bound_speed": bound / ms}
+        print(f"{name} at the parity stem's site {tuple(stem['shape'])} bf16, alone: device "
+              f"{ms * 1e3:.1f} us (torch.profiler), call {stem[f'{key}_ms'] * 1e3:.1f} us "
+              f"(CUDA events), bound {bound * 1e3:.1f} us (bytes): {100 * bound / ms:.0f}% of "
+              f"the bound's speed" + (" -- under half of it" if bound / ms < 0.5 else ""))
+    return out
 
 
 def flip_inputs(dev, shape: tuple, seed: int) -> tuple:
@@ -643,21 +717,24 @@ def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
 
 
 def train_inprocess_phase(tiles: Path, tmp: Path, steps: int = TRAIN_STEPS,
-                          parity: bool = False) -> dict:
+                          parity: bool = False, **cfg) -> dict:
     """Step time, per-step launch counts, and a kernel step against a plain
     step from the same state, batch and flags; the flagship tpu_opt model,
     or with ``parity`` the parity model with self-attention (γ set to
-    SA_GAMMA after the init, so the attention takes part in the step)."""
+    SA_GAMMA after the init, so the attention takes part in the step);
+    ``cfg`` sets more ``TrainerConfig`` fields (the pipeline's weighted
+    focal loss)."""
     from unet_tpu_torch.models.layers import BatchNorm, SelfAttention
     from unet_tpu_torch.ops import aug, bn
     from unet_tpu_torch.train.loop import Trainer, TrainerConfig
 
-    what = "parity+SA" if parity else "tpu_opt"
+    what = ("parity+SA" if parity else "tpu_opt") + "".join(
+        f", {k} {v}" for k, v in cfg.items())
     trainer = Trainer(TrainerConfig(
         data_path=tiles, model_path=tmp / "inproc", description="inproc",
         codes=("background", "building", "vegetation"), arch="xresnet34",
         batch_size=BATCH, epochs=1, lr=1e-3, seed=SEED, tpu_opt=not parity,
-        self_attention=parity))
+        self_attention=parity, **cfg))
     try:
         trainer.init_state()
         with torch.no_grad():
@@ -897,16 +974,23 @@ def native_phase(tmp: Path, tiles: Path) -> dict:
     return {"batch_ms": med, "codec_ms": per_codec}
 
 
-def class_agreement(pred, pred32, x: np.ndarray) -> tuple:
-    """(share of pixels whose bf16 class equals the float32 one, class map
-    shape) on one batch ``x``, TF32 off for the float32 forward."""
+@contextlib.contextmanager
+def tf32_off():
+    """float32 convolutions and matmuls without TF32 inside the block."""
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        cls16 = pred.predict_batch_device(x, argmax_u8=True)
-        cls32 = pred32.predict_batch_device(x, argmax_u8=True)
+        yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def class_agreement(pred, pred32, x: np.ndarray) -> tuple:
+    """(share of pixels whose bf16 class equals the float32 one, class map
+    shape) on one batch ``x``, TF32 off for the float32 forward."""
+    with tf32_off():
+        cls16 = pred.predict_batch_device(x, argmax_u8=True)
+        cls32 = pred32.predict_batch_device(x, argmax_u8=True)
     return (cls16 == cls32).float().mean().item(), tuple(cls16.shape)
 
 
@@ -1051,7 +1135,7 @@ def parity_train_phase(dev, tmp: Path, tiles: Path, transform, crs) -> dict:
              for k in ("query_u", "key_u", "value_u")}
     if min(moved.values()) <= 1e-4:
         raise AssertionError(f"the trained u vectors did not move: {moved}")
-    serve_cli(tr["bundle"], tmp / "scene.tif", tmp / "parity_trained.tif")
+    serve_inprocess(tr["bundle"], tmp / "scene.tif", tmp / "parity_trained.tif")
     print(f"parity CLI bundle: u vectors moved from their init by {moved}; served the "
           f"{SCENE}² scene: classes {check_class_map(tmp / 'parity_trained.tif', transform, crs)}")
     return tr
@@ -1097,6 +1181,319 @@ def op_device_ms(prof) -> dict:
     return out
 
 
+def run_cli(args: list, what: str, quiet: bool = False) -> tuple:
+    """``python -m unet_tpu_torch <args>`` in a subprocess: (wall seconds,
+    standard output); a nonzero exit raises. With ``quiet`` only the last
+    lines of its output are logged."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "unet_tpu_torch", *map(str, args)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
+    wall = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    log("\n".join(out.splitlines()[-8:]) if quiet and proc.returncode == 0 else out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} exited {proc.returncode}")
+    return wall, proc.stdout
+
+
+@contextlib.contextmanager
+def quiet_stdout(path: Path):
+    """Standard output into ``path`` (the trainers' epoch rows and the
+    progress lines of many runs); its tail goes to stderr if the block
+    raises."""
+    with open(path, "w") as f, contextlib.redirect_stdout(f):
+        try:
+            yield
+        except BaseException:
+            f.flush()
+            log(path.read_text()[-4000:])
+            raise
+
+
+@contextlib.contextmanager
+def timed_calls(targets: list, spent: dict):
+    """Replace each (owner, attribute) callable with one that adds its
+    seconds to ``spent[attribute]``; restored on exit."""
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr in targets]
+
+    def wrap(attr, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[attr] = spent.get(attr, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for owner, attr, fn in saved:
+        setattr(owner, attr, wrap(attr, fn))
+    try:
+        yield spent
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def tile_phase(tmp: Path, transform, crs) -> dict:
+    """``python -m unet_tpu_torch tile`` of the 4096² scene with its labels
+    as a mask GeoTIFF (512² tiles, overlap 0.2, split 0.8 / 0.2, seed 0):
+    the trai / vali × img_tiles / mask_tiles layout, image and mask names
+    paired, every tile 512² on the scene's pixel grid; then the prediction
+    tiles with no mask and max_empty 1.0 (every window)."""
+    from unet_tpu_torch.geo import tiff, write_raster
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    _, labels = scene_arrays(SCENE, SEED)
+    write_raster(tmp / "mask.tif", labels[None], transform=transform, crs=crs)
+    pipe, pred = tmp / "pipe", tmp / "pred"
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:  # both at once
+        train_tiles = pool.submit(
+            run_cli, ["tile", tmp / "scene.tif", "--mask", tmp / "mask.tif", "--base-dir",
+                      pipe, "--patch-size", PATCH, "--patch-overlap", "0.2", "--split", "0.8",
+                      "0.2", "--seed", SEED], "tile")
+        pred_tiles = pool.submit(
+            run_cli, ["tile", tmp / "scene.tif", "--base-dir", pred, "--patch-size", PATCH,
+                      "--patch-overlap", "0.2", "--max-empty", "1.0"], "tile (prediction tiles)")
+        (secs, out), (pred_secs, _) = train_tiles.result(), pred_tiles.result()
+    n = int(re.search(r"(\d+) tiles written to", out).group(1))
+    split = {}
+    for part in ("trai", "vali"):
+        names = [sorted(p.name for p in (pipe / part / sub).glob("*.tif"))
+                 for sub in ("img_tiles", "mask_tiles")]
+        if not names[0] or names[0] != names[1]:
+            raise AssertionError(f"{part}: image and mask tiles do not pair up")
+        split[part] = len(names[0])
+    if sum(split.values()) != n or (pipe / "img_tiles").exists():
+        raise AssertionError(f"tile layout {split} against {n} tiles written")
+    n_windows = len(generate_windows(SCENE, SCENE, PATCH, 0.2))
+    files = sorted(pipe.glob("*/*/*.tif")) + sorted((pred / "img_tiles").glob("*.tif"))
+    if len(files) != 2 * n + n_windows:
+        raise AssertionError(f"{len(files)} tile files, expected {2 * n} + {n_windows}")
+    for f in files:
+        info = tiff.read_info(str(f))
+        t = info.transform
+        col, row = (t[0] - transform[0]) / transform[1], (t[3] - transform[3]) / transform[5]
+        if not (info.width == info.height == PATCH and info.crs == crs
+                and (t[1], t[2], t[4], t[5]) == tuple(transform[i] for i in (1, 2, 4, 5))
+                and abs(col - round(col)) < 1e-6 and abs(row - round(row)) < 1e-6
+                and 0 <= round(col) <= SCENE - PATCH and 0 <= round(row) <= SCENE - PATCH):
+            raise AssertionError(f"{f.name}: {info.width}x{info.height} at {t} {info.crs}")
+    print(f"tile CLI: {n} tiles of {PATCH}² (trai {split['trai']}, vali {split['vali']}) in "
+          f"{secs:.2f} s with process start; {n_windows} prediction tiles (no mask, "
+          f"max_empty 1.0) in {pred_secs:.2f} s, the two runs side by side; every tile on "
+          "the scene's pixel grid")
+    return {"pipe": pipe, "pred": pred / "img_tiles", "n": n, "split": split,
+            "seconds": secs, "n_pred": n_windows}
+
+
+def pipeline_train_phase(tmp: Path, pipe: Path) -> dict:
+    """Train the flagship on the tiled scene as a reference user does (the
+    JAX package's ``train_model`` with ``loss_func="focal"``, which its CLI
+    has no flag for): xresnet34 tpu_opt, bf16, batch 16, weighted focal
+    loss, flips, PIPE_EPOCHS epoch(s); every launch count set to 0 just
+    before and read just after."""
+    from unet_tpu_torch.ops import aug, bn
+    from unet_tpu_torch.train.loop import Trainer, TrainerConfig, train_model
+
+    cfg = TrainerConfig(data_path=pipe, model_path=tmp / "models", description="pipe",
+                        codes=("background", "road", "field"), arch="xresnet34",
+                        batch_size=BATCH, epochs=PIPE_EPOCHS, lr=1e-3,
+                        class_weights="weighted", loss_func="focal", seed=SEED)
+    trainer = Trainer(cfg)
+    counters = {"bn_sum_sumsq": bn.bn_sum_sumsq, "bn_bwd_sums": bn.bn_bwd_sums,
+                "flip_scale": aug.fused_flip_scale}
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    bundle = train_model(cfg, trainer)
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    steps = len(trainer.step_ms())
+    evals = PIPE_EPOCHS * -(-trainer.dataset.n_valid // BATCH)
+    want = {"bn_sum_sumsq": 43 * steps, "bn_bwd_sums": 43 * steps, "flip_scale": steps + evals}
+    if launches != want:
+        raise AssertionError(f"pipeline train launches {launches}, expected {want}")
+    for row in trainer.history:
+        if not all(np.isfinite([row["train_loss"], row["valid_loss"], row["dice_multi"]])):
+            raise AssertionError(f"non-finite history row {row}")
+    ms = trainer.step_ms()
+    print(f"pipeline train (weighted focal, flips, bf16): {steps} steps + {evals} validation "
+          f"batches in {secs:.2f} s; step {float(np.median(ms[1:])):.1f} ms median after the "
+          f"first; class weights {[round(w, 3) for w in trainer.class_weights]}; launches "
+          f"{launches}")
+    return {"bundle": bundle, "launches": launches, "steps": steps}
+
+
+def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, transform,
+                           crs) -> dict:
+    """``python -m unet_tpu_torch predict --merge`` of the prediction tiles,
+    on the host and then with ``--device-merge`` (blend_count): both mosaics
+    uint8, 4096², georeferenced like the scene, and >= 99.99% equal to each
+    other; the device merge >= 99.99% equal to ``serve`` of the same bundle
+    and scene in float32 (TF32 off; the bf16 agreement is printed); then in
+    this process with the model resident: each mode's
+    tiles/s and merge finalize seconds, and blend_count's launches on the
+    device-merge path (counts set to 0 just before)."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops.blend import DeviceMosaic, blend_and_count
+    from unet_tpu_torch.predict import predict as pp
+    from unet_tpu_torch.predict.merge import MosaicAccumulator
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    n_tiles = len(list(pred_tiles.glob("*.tif")))
+    n_batches = -(-n_tiles // BATCH)
+    mosaic = pred_tiles.parent / f"smoke_2026_{bundle.name}_prediction.tif"
+    maps, cli_s = {}, {}
+    for mode, extra in (("host", []), ("device", ["--device-merge"])):
+        cli_s[mode], _ = run_cli(["predict", bundle, pred_tiles, "--merge", "--aoi", "smoke",
+                                  "--year", "2026", "--batch-size", BATCH, *extra],
+                                 f"predict --merge {' '.join(extra)}", quiet=True)
+        classes = check_class_map(mosaic, transform, crs)
+        maps[mode] = read_raster(mosaic).data[0]
+        mosaic.rename(tmp / f"pipeline_{mode}.tif")
+        print(f"predict CLI --merge {' '.join(extra)}: {n_tiles} tiles in {cli_s[mode]:.2f} s "
+              f"with process start ({n_tiles / cli_s[mode]:.1f} tiles/s); classes {classes}")
+    agree = float((maps["host"] == maps["device"]).mean())
+    pred = pp.Predictor(str(bundle), batch_size=BATCH, device=dev)
+
+    def run(mode: str, aoi: str, predictor=pred):
+        return pp.save_predictions(str(bundle), str(pred_tiles), merge=True, AOI=aoi,
+                                   year="2026", device_merge=mode == "device",
+                                   predictor=predictor)
+
+    def serve(predictor):
+        return pp.predict_raster(str(bundle), str(tmp / "scene.tif"), None, patch_size=PATCH,
+                                 patch_overlap=0.2, batch_size=BATCH, predictor=predictor,
+                                 device=dev)[0]
+
+    # serve batches the windows in scene order, predict the tiles in name
+    # order: a window sits at another place in its batch, and cuDNN's bf16
+    # convolutions round by that place, so the bf16 maps differ where the
+    # logits round across a class boundary; in float32 (TF32 off) the two
+    # differ only in the order of float32 sums
+    agree_serve16 = float((serve(pred) == maps["device"]).mean())
+    hwc = np.moveaxis(read_raster(tmp / "scene.tif").data, 0, 2)
+    x = np.stack([hwc[w.indices()] for w in generate_windows(SCENE, SCENE, PATCH, 0.2)[:BATCH]])
+    base = pred.predict_batch_device(x, argmax_u8=True)
+    moved = [float((torch.roll(pred.predict_batch_device(np.roll(x, k, 0), argmax_u8=True),
+                               -k, 0) != base).float().mean()) for k in (1, 5, 8)]
+    pred32 = pp.Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+    with tf32_off(), quiet_stdout(tmp / "predict_f32.log"):
+        served32 = serve(pred32)
+        merged32 = read_raster(run("device", "float32", pred32)).data[0]
+    agree_serve = float((served32 == merged32).mean())
+    del pred32
+    print(f"pipeline mosaics: host merge vs device merge {100 * agree:.4f}% equal "
+          f"({'bit-equal' if agree == 1.0 else 'not bit-equal'}); device merge vs serve of "
+          f"the same bundle and scene {100 * agree_serve:.4f}% in float32 (TF32 off), "
+          f"{100 * agree_serve16:.4f}% in bf16 (not held: bf16 rounds by batch place: the "
+          f"same {BATCH} windows rolled by 1, 5 and 8 places in their batch change "
+          + ", ".join(f"{100 * m:.4f}%" for m in moved) + " of their bf16 class pixels)")
+    if agree < AGREE or agree_serve < AGREE:
+        raise AssertionError(f"pipeline mosaics agree on {agree} / {agree_serve}")
+
+    warm = {}
+    with quiet_stdout(tmp / "predict_warm.log"):
+        run("device", "warmup")
+        for mode in ("host", "device"):
+            blend_and_count.launches = 0
+            spent: dict = {}
+            targets = ([(MosaicAccumulator, "finalize")] if mode == "host"
+                       else [(DeviceMosaic, "finalize"), (pp, "finalize_mosaic")])
+            with timed_calls(targets, spent):
+                t0 = time.perf_counter()
+                run(mode, f"warm{mode}")
+                secs = time.perf_counter() - t0
+            warm[mode] = {"seconds": secs, "tiles_per_s": n_tiles / secs,
+                          "finalize_s": sum(spent.values()),
+                          "launches": blend_and_count.launches}
+    if warm["device"]["launches"] != n_batches or warm["host"]["launches"] != 0:
+        raise AssertionError(f"blend_count launches: device merge "
+                             f"{warm['device']['launches']} for {n_batches} batches, host "
+                             f"merge {warm['host']['launches']}")
+    for mode, w in warm.items():
+        print(f"predict --merge in process ({mode} merge, model resident): {n_tiles} tiles in "
+              f"{w['seconds']:.2f} s = {w['tiles_per_s']:.1f} tiles/s; merge finalize "
+              f"{w['finalize_s']:.3f} s; blend_count launches {w['launches']}")
+    return {"pred": pred, "run": lambda: run("device", "profiled"), "agree": agree,
+            "agree_serve": agree_serve, "agree_serve_bf16": agree_serve16, "warm": warm,
+            "cli_s": cli_s,
+            "launches": warm["device"]["launches"]}
+
+
+def load_aerial_fixture():
+    """``tests/aerial_fixture.py`` (numpy only), loaded by path."""
+    spec = importlib.util.spec_from_file_location("aerial_fixture",
+                                                  ROOT / "tests" / "aerial_fixture.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def gate_phase(tmp: Path) -> dict:
+    """The quality gate of ``tests/test_quality_parity.py`` on the card,
+    field for field: ``make_scene(384, seed=4)``, ``split_raster`` (128²,
+    overlap 0.2, split 0.8 / 0.2, max_empty 0.9, seed 1; prediction tiles
+    with no mask, max_empty 1.0), xresnet18, batch 4, lr 3e-3, weighted
+    focal loss, flips, float32; the mosaic from ``save_predictions(merge=
+    True)``. Parity at 14 epochs (seed 0) and tpu_opt at 20 (seeds 0, 1)
+    must clear dice / mIoU .93 / .93 and .90 / .93; tpu_opt seed 2 is
+    measured against the same floors and a miss printed, not held (see
+    GATE_RUNS); then tpu_opt seed 0 in bf16, printed only."""
+    from unet_tpu_torch.geo import read_raster, write_raster
+    from unet_tpu_torch.predict import save_predictions
+    from unet_tpu_torch.tiling import split_raster
+    from unet_tpu_torch.train.loop import TrainerConfig, train_model
+
+    fixture = load_aerial_fixture()
+    root = tmp / "gate"
+    root.mkdir()
+    img, cls = fixture.make_scene(GATE_SIZE, seed=4)
+    write_raster(root / "scene.tif", img, transform=GATE_TRANSFORM, crs="EPSG:25833")
+    write_raster(root / "mask.tif", cls[None], transform=GATE_TRANSFORM, crs="EPSG:25833")
+    n = split_raster(str(root / "scene.tif"), str(root / "mask.tif"), str(root / "tiles"),
+                     patch_size=GATE_TILE, patch_overlap=0.2, split=[0.8, 0.2],
+                     max_empty=0.9, seed=1)
+    split_raster(str(root / "scene.tif"), None, str(root / "pred"), patch_size=GATE_TILE,
+                 patch_overlap=0.2, max_empty=1.0)
+    print(f"quality gate: {n} tiles of {GATE_TILE}² from the {GATE_SIZE}² 5-band uint16 "
+          f"scene; cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
+    results, failed = [], []
+    for topology, seed, epochs, bf16, held in GATE_RUNS:
+        desc = f"gate_{topology}_s{seed}" + ("_bf16" if bf16 else "")
+        t0 = time.perf_counter()
+        with quiet_stdout(root / f"{desc}.log"):
+            bundle = train_model(TrainerConfig(
+                data_path=root / "tiles", model_path=root / "models", description=desc,
+                batch_size=4, epochs=epochs, lr=3e-3, arch="xresnet18", codes=GATE_CODES,
+                class_weights="weighted", loss_func="focal", bf16=bf16, seed=seed,
+                transforms=True, tpu_opt=topology == "tpu_opt"))
+            out = save_predictions(str(bundle), str(root / "pred" / "img_tiles"),
+                                   merge=True, AOI=desc, year="2026", batch_size=4)
+        history = (bundle / f"{desc}_history.csv").read_text().splitlines()
+        col = history[0].split(",").index("dice_multi")
+        dice = max(float(r.split(",")[col]) for r in history[1:])
+        ious, miou = fixture.class_iou(read_raster(out).data[0], cls, len(GATE_CODES))
+        floors = None if bf16 else GATE_FLOORS[topology]
+        ok = floors is None or (dice >= floors[0] and miou >= floors[1])
+        print(f"quality gate {topology} seed {seed} {'bf16' if bf16 else 'float32'} "
+              f"{epochs} epochs: dice {dice:.4f}, mosaic mIoU {miou:.4f} (per class "
+              f"{[round(float(v), 3) for v in ious.values()]}), "
+              + (f"floors {floors[0]} / {floors[1]} {'met' if ok else 'MISSED'}"
+                 + ("" if held else " (measured, not held)") if floors
+                 else "no floor (measured only)")
+              + f"; {time.perf_counter() - t0:.1f} s")
+        results.append({"topology": topology, "seed": seed, "bf16": bf16, "epochs": epochs,
+                        "dice": dice, "miou": miou, "floors_met": ok, "held": held})
+        if held and not ok:
+            failed.append(desc)
+    if failed:
+        raise AssertionError(f"quality gate below its floors: {failed}")
+    return {"runs": results, "tf32": bool(torch.backends.cudnn.allow_tf32)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1113,6 +1510,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    log(f"-- phase 1 at {time.perf_counter() - t_start:.1f} s")
     # 1. the card
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
@@ -1120,6 +1518,7 @@ def main() -> int:
     print(f"device: {name} x{torch.cuda.device_count()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
+    log(f"-- phase 2 at {time.perf_counter() - t_start:.1f} s")
     # 2. build from source, cold even where a library is cached, one nvcc
     # process for each kernel source and one g++ for the native decoder,
     # all started together
@@ -1134,6 +1533,7 @@ def main() -> int:
     print(f"built {', '.join(KERNELS)} and the native decoder "
           f"({native.library_path().name}) in {time.perf_counter() - t0:.1f} s")
 
+    log(f"-- phase 3 at {time.perf_counter() - t_start:.1f} s")
     # 3. kernel vs plain on random tiles at overlapping and edge offsets
     rng = np.random.default_rng(SEED)
     H3, W3, N3 = 1100, 1300, 16
@@ -1163,6 +1563,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=ROOT) as tmp:
         tmp = Path(tmp)
+        log(f"-- phase 4 at {time.perf_counter() - t_start:.1f} s")
         # 4. serve through the CLI in a subprocess; its launch counts start
         # at 0 in the new process and come back in the stats file
         t0 = time.perf_counter()
@@ -1185,6 +1586,7 @@ def main() -> int:
               f"(first {fwd[0]:.1f} ms); blend_count launches {launches}; "
               f"classes {classes}")
 
+        log(f"-- phase 5 at {time.perf_counter() - t_start:.1f} s")
         # 5. kernel vs plain on the served scene's windows
         pred = Predictor(str(bundle), batch_size=BATCH, device=dev,
                          dtype=torch.bfloat16)
@@ -1259,10 +1661,12 @@ def main() -> int:
               f"(sum of per-batch medians)")
         del mos_k, mos_p, batches
 
+        log(f"-- phase 5b at {time.perf_counter() - t_start:.1f} s")
         # 5b. the parity + self-attention model: serve cold and warm, bf16
         # against float32 at 512² and at a side not divisible by 4
         par_serve = parity_serve_phase(dev, tmp, transform, crs, hwc)
 
+        log(f"-- phase 6 at {time.perf_counter() - t_start:.1f} s")
         # 6. the training kernels against their plain versions; the two
         # PixelShuffleICNR formulations timed against each other
         bn_t = bn_phase(dev, late)
@@ -1270,6 +1674,7 @@ def main() -> int:
         shuffle_t = shuffle_phase(dev)
         doctor_launches = doctor_phase()
 
+        log(f"-- phase 7 at {time.perf_counter() - t_start:.1f} s")
         # 7. the native decoder on the tile set, then train through the
         # CLI and serve the exported bundle
         t0 = time.perf_counter()
@@ -1277,14 +1682,16 @@ def main() -> int:
         log(f"tile set in {time.perf_counter() - t0:.1f} s")
         native_phase(tmp, tiles)
         trained = train_cli_phase(tmp, tiles)
-        serve_cli(trained["bundle"], tmp / "scene.tif", tmp / "trained.tif")
+        serve_inprocess(trained["bundle"], tmp / "scene.tif", tmp / "trained.tif")
         print(f"trained bundle served the {SCENE}² scene: classes "
               f"{check_class_map(tmp / 'trained.tif', transform, crs)}")
 
+        log(f"-- phase 8 at {time.perf_counter() - t_start:.1f} s")
         # 8. train in this process
         inproc = train_inprocess_phase(tiles, tmp)
         trainer = inproc["trainer"]
 
+        log(f"-- phase 8b at {time.perf_counter() - t_start:.1f} s")
         # 8b. the parity + self-attention model: train through the CLI and
         # serve its bundle, then in this process (step time, launches, a
         # kernel step against a plain step), and its attention and
@@ -1298,6 +1705,7 @@ def main() -> int:
               f"of the {par_in['step_ms']:.2f} ms step; full-resolution tail "
               f"{parts['tail_ms']:.2f} ms = {100 * parts['tail_ms'] / par_in['step_ms']:.1f}%")
 
+        log(f"-- phase 9 at {time.perf_counter() - t_start:.1f} s")
         # 9. bf16 vs float32 class maps on one batch of 16 tiles (TF32 off)
         pred32 = Predictor(str(bundle), batch_size=BATCH, device=dev,
                            dtype=torch.float32)
@@ -1308,18 +1716,37 @@ def main() -> int:
             raise AssertionError(f"bf16 agrees with float32 on only {agree:.4f}")
         del pred32
 
+        log(f"-- phase 9b at {time.perf_counter() - t_start:.1f} s")
+        # 9b. the reference pipeline at full width: tile through the CLI,
+        # train with the weighted focal loss, predict --merge through the
+        # CLI on the host and on the card, against each other and serve
+        tiled = tile_phase(tmp, transform, crs)
+        piped = pipeline_train_phase(tmp, tiled["pipe"])
+        focal = train_inprocess_phase(tiled["pipe"], tmp, PIPE_STEPS,
+                                      loss_func="focal", class_weights="weighted")
+        focal["trainer"].close()
+        del focal["trainer"]
+        predicted = pipeline_predict_phase(dev, tmp, piped["bundle"], tiled["pred"],
+                                           transform, crs)
+
+        log(f"-- phase 9c at {time.perf_counter() - t_start:.1f} s")
+        # 9c. the quality gate on the card
+        gate = gate_phase(tmp)
+
+        log(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
         # 10. under torch.profiler, after every kernel timing (the profiler
         # slows later launches): each kernel's device time, then the card's
         # busy time (union of its kernels and copies) against the wall time
         # of a warm serve, then of a few train steps, of each topology
         dev_t = device_times(late)
         alone = one_op_checks(late)
+        stem = stem_site_device(bn_t["stem"])
         from unet_tpu_torch.ops.probe import empty_kernel
 
         empty_dev_ms = device_trace(lambda: empty_kernel(dev), "the empty kernel")["ms"]
         print(f"empty kernel device time (torch.profiler): {empty_dev_ms * 1e3:.2f} us")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        profs = {}
+        profs, idle = {}, {}
         for what, run in (
                 ("warm serve", lambda: predict_raster(
                     str(bundle), str(tmp / "scene.tif"), str(tmp / "warm.tif"),
@@ -1333,7 +1760,8 @@ def main() -> int:
                     predictor=par_serve["pred"], device=dev)),
                 (f"{PROFILED_STEPS} parity train steps", lambda: [
                     par_trainer.train_step(*par_in["host"][i % len(par_in["host"])])
-                    for i in range(PROFILED_STEPS)])):
+                    for i in range(PROFILED_STEPS)]),
+                ("device-merge predict", predicted["run"])):
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts) as prof:
                 t0 = time.perf_counter()
@@ -1343,9 +1771,10 @@ def main() -> int:
             profs[what] = prof
             busy_s, n_dev = device_busy_s(prof)
             if n_dev:
+                idle[what] = 1 - busy_s / prof_s
                 print(f"{what} under torch.profiler: {prof_s:.3f} s; card busy "
                       f"{busy_s:.3f} s over {n_dev} device events; idle share "
-                      f"{100 * (1 - busy_s / prof_s):.1f}%")
+                      f"{100 * idle[what]:.1f}%")
             else:
                 print(f"{what} under torch.profiler: no device events traced; "
                       "idle share not measured")
@@ -1393,6 +1822,21 @@ def main() -> int:
                        "parity_train_step": par_in["launches"][2]},
         "offset_copy": {"parity_paths": 0},
     }
+    pipeline = {  # each kernel's launches on the pipeline's paths, counts set to 0 before
+        "blend_count": {"predict_device_merge": predicted["launches"],
+                        "predict_host_merge": predicted["warm"]["host"]["launches"],
+                        "idle_share_device_merge": idle.get("device-merge predict")},
+        "bn_sum_sumsq": {"pipeline_train": piped["launches"]["bn_sum_sumsq"],
+                         "parity_stem_site": stem["bn_sum_sumsq"]},
+        "bn_bwd_sums": {"pipeline_train": piped["launches"]["bn_bwd_sums"],
+                        "parity_stem_site": stem["bn_bwd_sums"]},
+        "flip_scale": {"pipeline_train": piped["launches"]["flip_scale"]},
+        "offset_copy": {"pipeline": 0},
+    }
+    for kname, n in pipeline.items():
+        path_counts = [v for k, v in n.items() if k in ("predict_device_merge", "pipeline_train")]
+        if any(c <= 0 for c in path_counts):
+            raise AssertionError(f"{kname} was not launched on the pipeline: {n}")
     rows = [
         ("blend_count", "blend_count.cu", "unet_tpu/ops/blend.py:108", launches, max_err,
          k_ms, bound_ms, bound_by, {"equal": True, "kernel_us": k3 * 1e3, "plain_us": p3 * 1e3,
@@ -1424,8 +1868,16 @@ def main() -> int:
     kernels = {"kernels": [
         {"name": kname, "route": "cuda", "source": cuda_src + src, "replaces": replaces,
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
-         "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname]}
+         "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
+         "pipeline": pipeline[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
+    print("quality gate on the card: " + "; ".join(
+        f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "
+        f"{r['dice']:.4f} mIoU {r['miou']:.4f}"
+        + ("" if r["bf16"] else f" floors {'met' if r['floors_met'] else 'missed'}"
+           + ("" if r["held"] else " (not held)"))
+        for r in gate["runs"])
+        + f" (cuDNN TF32 {gate['tf32']})")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(kernels))

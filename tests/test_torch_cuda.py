@@ -73,6 +73,44 @@ def test_device_mosaic_uses_kernel_on_cuda(dev):
         np.testing.assert_array_equal(a, b)
 
 
+def test_save_predictions_device_merge_equals_host_merge(dev, tmp_path):
+    """``predict --merge``, on the card: the device merge launches
+    blend_count once a batch and writes the host merge's mosaic bit for bit
+    (both add the same float32 probabilities in tile order), in the default
+    and the all_classes mode; the tiles include a partial last batch."""
+    from unet_tpu_torch.geo import read_raster, write_raster
+    from unet_tpu_torch.models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
+    from unet_tpu_torch.predict.predict import Predictor, save_predictions
+    from unet_tpu_torch.tiling import split_raster
+    from unet_tpu_torch.train.checkpoint import export_bundle, to_flax_variables
+
+    model = init_weights(build_unet("xresnet18", n_out=3, c_in=3),
+                         torch.Generator().manual_seed(0))
+    export_bundle(tmp_path / "m", "m", to_flax_variables(model.state_dict()),
+                  {"ARCHITECTURE": "xresnet18", "n_out": 3, "number_of_bands": 3,
+                   "patch_size": 64, "enable_regression": False, "dtype_str": "uint8",
+                   "normalize": "unit", "tpu_opt": True,
+                   "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION})
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (3, 150, 182)).astype(np.uint8)
+    t = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
+    write_raster(tmp_path / "scene.tif", img, transform=t, crs="EPSG:25832")
+    n = split_raster(str(tmp_path / "scene.tif"), None, str(tmp_path / "pred"),
+                     patch_size=64, patch_overlap=0.2, max_empty=1.0)
+    pred = Predictor(str(tmp_path / "m"), batch_size=5, device=dev)
+    tiles = str(tmp_path / "pred" / "img_tiles")
+    for kw in ({}, {"all_classes": True}):
+        host = save_predictions(str(tmp_path / "m"), tiles, merge=True, AOI="host",
+                                predictor=pred, **kw)
+        before = blend.blend_and_count.launches
+        on_card = save_predictions(str(tmp_path / "m"), tiles, merge=True, AOI="card",
+                                   device_merge=True, predictor=pred, **kw)
+        assert blend.blend_and_count.launches - before == -(-n // 5)
+        a, b = read_raster(on_card), read_raster(host)
+        np.testing.assert_array_equal(a.data, b.data)
+        assert tuple(a.transform) == t and a.crs == b.crs
+
+
 # --- the training kernels: bn_stats (forward and backward) and flip_scale ---
 
 # (N, C, H, W): the training BatchNorm shapes of the xresnet34 U-Net at

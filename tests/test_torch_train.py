@@ -77,7 +77,7 @@ def test_cross_entropy_sample_mask_matches_jax():
         _nchw(logits), torch.from_numpy(targets), sample_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.item(), want, rtol=1e-5)  # float32 sum order
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tl.build_loss("focal")
+        tl.build_loss("dice")
 
 
 def test_dice_multi_matches_jax():

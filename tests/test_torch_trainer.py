@@ -190,7 +190,7 @@ def test_unported_trainer_settings_raise(trained):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         loop.Trainer(loop.TrainerConfig(aug=AugmentConfig(rot90_p=0.5), **base))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        loop.Trainer(loop.TrainerConfig(loss_func="focal", **base))
+        loop.Trainer(loop.TrainerConfig(loss_func="dice", **base))
     with pytest.raises(ValueError, match="monitor"):
         loop.Trainer(loop.TrainerConfig(monitor="r2_score", **base))
 

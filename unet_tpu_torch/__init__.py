@@ -2,9 +2,11 @@
 
 The JAX package stays the reference; this package mirrors its module
 layout and names so each counterpart is easy to find, and imports neither
-JAX nor anything of ``unet_tpu``. It trains and serves the U-Net in both
-topologies, tpu_opt and the reference-shaped parity one, with or without
-self-attention (``python -m unet_tpu_torch train``, ``serve``), imports
+JAX nor anything of ``unet_tpu``. It runs the reference's pipeline: it
+cuts scenes into tiles (``python -m unet_tpu_torch tile``), trains the
+U-Net in both topologies, tpu_opt and the reference-shaped parity one,
+with or without self-attention (``train``), predicts tile sets into tiles
+or a merged mosaic (``predict``) and whole scenes (``serve``); it imports
 fastai-trained models (``import-model``) and checks a machine
 (``doctor``), with hand-written CUDA kernels under ``ops/csrc/`` and the
 native tile decoder under ``native/``.

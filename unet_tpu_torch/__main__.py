@@ -1,15 +1,22 @@
-"""CLI front-end: ``python -m unet_tpu_torch <train|serve|import-model|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <tile|train|predict|serve|import-model|doctor> ...``.
 
+    python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
+    python -m unet_tpu_torch predict models/run1 pred/img_tiles --merge [--device-merge]
     python -m unet_tpu_torch serve models/run1 scene.tif out.tif
     python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
 
 Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
+``tile`` is host code, as in ``unet_tpu``, and writes the same tile tree.
+``predict`` predicts a folder of tiles into predicted tiles or, with
+``--merge``, one overlap-averaged mosaic (``--device-merge``: accumulated
+on the card by the ``blend_count`` kernel).
 ``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
-``--self-attention`` in either), ``serve`` (any bundle: tpu_opt, parity,
-imported) and ``import-model`` (a fastai DynamicUnet state_dict → a parity
-bundle) also take ``--device`` (default ``cuda``); ``train`` and ``serve``
+``--self-attention`` in either), ``predict`` and ``serve`` (any bundle:
+tpu_opt, parity, imported) and ``import-model`` (a fastai DynamicUnet
+state_dict → a parity bundle) also take ``--device`` (default ``cuda``);
+``train`` and ``serve``
 take ``--stats-json`` (write the run's timings, kernel launch counts and,
 for ``train``, the loader's decode path to a JSON file); both compute in
 bf16.
@@ -36,6 +43,23 @@ def build_parser() -> argparse.ArgumentParser:
         description="aerial segmentation training and serving on NVIDIA GPUs "
                     "(PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    tile = sub.add_parser("tile", help="split a GeoTIFF into training tiles")
+    tile.add_argument("image")
+    tile.add_argument("--mask", default=None)
+    tile.add_argument("--base-dir", required=True)
+    tile.add_argument("--patch-size", type=int, default=400)
+    tile.add_argument("--patch-overlap", type=float, default=0.0)
+    tile.add_argument("--split", type=float, nargs="+", default=[0.8, 0.2])
+    tile.add_argument("--max-empty", type=float, default=0.9)
+    tile.add_argument("--class-zero", action="store_true")
+    tile.add_argument("--seed", type=int, default=None)
+    tile.add_argument("--reference-quirks", action="store_true")
+    tile.add_argument("--compress", default=None,
+                      choices=["none", "deflate", "lzw", "packbits", "jpeg", "jpeg-lossless"],
+                      help="tile output compression (img tiles; masks keep "
+                           "exact labels — lossy jpeg maps to deflate for "
+                           "them)")
 
     tr = sub.add_parser("train", help="train a model on a tile dataset")
     tr.add_argument("data_path")
@@ -69,6 +93,37 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--stats-json", default=None,
                     help="write steps, seconds, tiles/s, step ms and kernel "
                          "launch counts here")
+
+    pr = sub.add_parser("predict", help="predict tiles with a trained bundle")
+    pr.add_argument("model")
+    pr.add_argument("tiles")
+    pr.add_argument("--merge", action="store_true")
+    pr.add_argument("--regression", action="store_true")
+    pr.add_argument("--all-classes", action="store_true")
+    pr.add_argument("--specific-class", type=int, default=None)
+    pr.add_argument("--large-file", action="store_true")
+    pr.add_argument("--aoi", default=None)
+    pr.add_argument("--year", default=None)
+    pr.add_argument("--validation-vision", action="store_true", help="not yet ported")
+    pr.add_argument("--class-zero", action="store_true",
+                    help="0 = nodata: decrement classes on write "
+                         "(reference predict.py:32-35)")
+    pr.add_argument("--device-merge", action="store_true",
+                    help="accumulate the merge mosaic on the device (the "
+                         "blend_count kernel) instead of on the host")
+    pr.add_argument("--batch-size", type=int, default=16)
+    pr.add_argument("--spatial", type=int, default=1,
+                    help="shard tile height over devices (not yet ported)")
+    pr.add_argument("--tta", action="store_true",
+                    help="4-fold flip test-time augmentation (averaged "
+                         "probabilities; 4x forward cost)")
+    pr.add_argument("--reference-quirks", action="store_true")
+    pr.add_argument("--compress", default=None,
+                    choices=["none", "deflate", "lzw", "packbits", "jpeg", "jpeg-lossless"],
+                    help="output compression for prediction tiles / the "
+                         "merged mosaic")
+    pr.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu only when asked)")
 
     sv = sub.add_parser("serve", help="predict whole GeoTIFFs directly (no tile files)")
     sv.add_argument("model")
@@ -162,6 +217,17 @@ def _dispatch(args) -> int:
 
         results = run_doctor(kernels=args.kernels)
         return 0 if all(ok for ok, _ in results.values()) else 1
+    if args.command == "tile":
+        from .tiling import split_raster
+
+        n = split_raster(args.image, args.mask, args.base_dir, args.patch_size,
+                         args.patch_overlap, args.split, args.max_empty, args.class_zero,
+                         seed=args.seed, reference_quirks=args.reference_quirks,
+                         compress=_compress_arg(args))
+        print(f"{n} tiles written to {args.base_dir}")
+        return 0
+    if args.command == "predict":
+        return _predict(args)
     if args.command == "import-model":
         from .models.torch_import import import_model_cli
 
@@ -223,6 +289,42 @@ def _train(args) -> int:
     return 0
 
 
+def _compress_arg(args):
+    """The argparse surface spells no compression 'none'."""
+    return None if args.compress in (None, "none") else args.compress
+
+
+def _is_artifact(path) -> bool:
+    """True if ``path`` is a ``unet_tpu export`` serving artifact (an npz
+    file holding ``__utaot__``) rather than a model bundle."""
+    import numpy as np
+
+    if not os.path.isfile(path):
+        return False
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            return "__utaot__" in z.files
+    except (OSError, ValueError):
+        return False
+
+
+def _predict(args) -> int:
+    from .predict.predict import save_predictions
+
+    if _is_artifact(args.model):
+        raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
+    out = save_predictions(args.model, args.tiles, args.regression, args.merge,
+                           args.all_classes, args.specific_class, args.large_file,
+                           args.aoi, args.year, args.validation_vision,
+                           class_zero=args.class_zero, batch_size=args.batch_size,
+                           spatial=args.spatial, tta=args.tta,
+                           device_merge=args.device_merge,
+                           reference_quirks=args.reference_quirks,
+                           out_compress=_compress_arg(args), device=args.device)
+    print(f"Predictions at {out}")
+    return 0
+
+
 def _serve(args) -> int:
     import torch
 
@@ -235,7 +337,7 @@ def _serve(args) -> int:
         raise NotImplementedError("--spatial > 1 is not yet ported")
     if args.stream:
         raise NotImplementedError("--stream is not yet ported")
-    compress = None if args.compress in (None, "none") else args.compress
+    compress = _compress_arg(args)
     predictor = Predictor(args.model, batch_size=args.batch_size,
                           device=args.device, dtype=torch.bfloat16, tta=args.tta)
     common = dict(patch_size=args.patch_size, patch_overlap=args.patch_overlap,

@@ -8,8 +8,9 @@ is built, as the JAX trainer does), with or without self-attention:
 * a train step = uint8 tiles to the device → flip + scale
   (``fused_flip_scale``) → bf16 forward in training mode (every BatchNorm
   through the ``bn_stats`` kernels, every SelfAttention advancing its
-  power iteration) → class-weighted cross-entropy on the folded logits
-  (tpu_opt) or the full-resolution ones (parity) → backward → fastai Adam
+  power iteration) → class-weighted cross-entropy (or, with
+  ``loss_func="focal"``, the focal loss) on the folded logits (tpu_opt) or
+  the full-resolution ones (parity) → backward → fastai Adam
   under the one-cycle schedule;
 * validation after every epoch on full-resolution logits, with padded
   samples masked out, and ``dice_multi`` over the epoch;
