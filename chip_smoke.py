@@ -19,9 +19,11 @@ Phases (any failure raises and the script exits nonzero), in this order:
      checked and the run's kernel launch count read back;
   5. blend_count vs its plain version on the served scene's 100 windows,
      bit-equal, and the kernel timed at those shapes beside its bound and a
-     library scatter-add; the host phases of a serve timed one by one, and
-     the scene served again in this process with the model resident (warm
-     tiles/s, the forwards' share of it, the kernel's launch count);
+     library scatter-add; the host phases of a serve timed one by one (the
+     host finalize_mosaic of PRs 1-6 beside the finalize on the card, which
+     must equal it), and the scene served again in this process with the
+     model resident (warm tiles/s, the forwards' share of it, the finalize
+     on the card, the kernel's launch count);
      5b. the reference-shaped model, xresnet34 parity topology with
      self-attention (γ = 0.5, as γ = 0 makes the attention an identity),
      same widths, classes, tiles, batch and bf16: a seeded bundle serves
@@ -30,6 +32,25 @@ Phases (any failure raises and the script exits nonzero), in this order:
      (tiles/s, forward ms a batch, launches), and bf16 against float32
      class maps on 16 windows of 512² and of 402² (a side not divisible by
      4: the decoder's nearest-resizes), >= 99% each;
+     5c. any-size serve. (a) The 4096² scene through predict_raster's
+     three tiers in float32 with TF32 off, in this process: the whole-scene
+     mosaic, the band over the scene in RAM (device_budget_bytes=0) and
+     predict_raster_streamed; banded == streamed bit for bit, the
+     whole-scene map >= 99.99% equal to the banded one and equal wherever
+     its top-two margin is >= 1e-5, the finalize on the card == the host
+     finalize_mosaic on the same sums in all four modes, and blend_count ==
+     its plain version at the band's offsets over the band's batches (most
+     wrap from one window row to the next); launches 7 for the whole
+     mosaic and one a batch's window row for the band. (b) A 20000² 3-band
+     uint8 scene (the 4096² scene tiled; 2401 windows, 151 batches; its
+     6.4 GB mosaic exceeds the 4 GiB device budget) with the flagship
+     bundle in bf16: ``python -m unet_tpu_torch serve`` (default budgets:
+     the band over the scene in RAM) and ``serve --stream`` in
+     subprocesses, then both tiers in this process with the model
+     resident; the in-process maps bit-equal, each CLI map >= 99.99% equal
+     to its twin, valid classes, the scene's georeference, one launch an
+     add; each run's tiles/s, seconds, finalize seconds, host read and
+     write seconds, launches, peak card memory and peak host RSS;
   6. the training kernels vs their plain versions on random inputs, timed
      beside their bound and a PyTorch library call: bn_stats forward and
      backward at the (C, H·W) shapes of the 43 training BatchNorms of the
@@ -107,7 +128,11 @@ Phases (any failure raises and the script exits nonzero), in this order:
      with the parity step's device time by kernel and by PyTorch op (the
      attention products and softmax named), and of a device-merge predict;
      bn_sum_sumsq and bn_bwd_sums alone at the parity stem's (16, 32, 256²)
-     site by device time, beside their bounds.
+     site by device time, beside their bounds; blend_count's kernel time
+     at the 20000² band for a batch within a window row and for a batch
+     that wraps rows, whole and split a window row a launch; and the
+     card's idle share of a warm streamed 20000² serve (device activity
+     only).
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. Needs no network; work files go to a
 temporary directory inside the checkout and are removed at the end.
@@ -124,6 +149,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -168,6 +194,7 @@ PARITY_STEPS = 6      # in-process timed parity steps
 PIPE_EPOCHS = 1       # the pipeline's focal training: 1 epoch of the tiled scene
 PIPE_STEPS = 3        # in-process focal steps before its kernel-vs-plain step
 AGREE = 0.9999        # the pipeline's mosaics: host merge, device merge, serve
+BIG = 20000           # any-size serve: a 4 km x 4 km sheet at 20 cm, 49 x 49 windows
 # the quality gate of tests/test_quality_parity.py, field for field
 GATE_SIZE, GATE_TILE = 384, 128
 GATE_TRANSFORM = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
@@ -319,20 +346,67 @@ def make_bundle(root: Path, name: str = "smoke", parity: bool = False) -> Path:
     return root / name
 
 
-def serve_cli(bundle: Path, scene: Path, out: Path, stats_path=None) -> dict:
+def vm_rss_bytes(pid: int) -> int:
+    """The resident set of process ``pid`` now (``VmRSS``); 0 once it has
+    gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+@contextlib.contextmanager
+def rss_peak(pid: int, out: dict, every_s: float = 0.02):
+    """``out["gb"]``: the largest resident set (``VmRSS`` of
+    ``/proc/<pid>/status``) of process ``pid`` sampled every ``every_s``
+    while the block runs. (``getrusage``'s ``ru_maxrss`` and ``VmHWM``
+    carry a parent's peak into a child on the card's machine, and the
+    machine refuses ``clear_refs``, so the peak of one run is sampled.)"""
+    stop, peak = threading.Event(), [0]
+
+    def poll():
+        while not stop.is_set():
+            peak[0] = max(peak[0], vm_rss_bytes(pid))
+            stop.wait(every_s)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["gb"] = peak[0] / 1e9
+
+
+def serve_cli(bundle: Path, scene: Path, out: Path, stats_path=None, extra=()) -> dict:
     """``python -m unet_tpu_torch serve`` of ``scene`` in a subprocess
-    (its launch counts start at 0 there); the stats file's content when
-    ``stats_path`` is given."""
+    (its launch counts start at 0 there), with ``extra`` arguments; the
+    stats file's content when ``stats_path`` is given, with the process's
+    sampled peak resident set as ``peak_rss_gb``."""
     cmd = [sys.executable, "-m", "unet_tpu_torch", "serve", str(bundle), str(scene),
-           str(out), "--patch-size", str(PATCH), "--batch-size", str(BATCH)]
+           str(out), "--patch-size", str(PATCH), "--batch-size", str(BATCH), *extra]
     if stats_path is not None:
         cmd += ["--stats-json", str(stats_path)]
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900,
-                          env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
-    log(proc.stdout + proc.stderr)
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
+    with rss_peak(proc.pid, {}) as rss:
+        try:
+            stdout, stderr = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+    log(stdout + stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"serve of {bundle.name} exited {proc.returncode}")
-    return json.loads(Path(stats_path).read_text()) if stats_path is not None else {}
+    if stats_path is None:
+        return {}
+    return {**json.loads(Path(stats_path).read_text()), "peak_rss_gb": rss["gb"]}
 
 
 def serve_inprocess(bundle: Path, scene: Path, out: Path) -> None:
@@ -1056,6 +1130,280 @@ def parity_serve_phase(dev, tmp: Path, transform, crs, hwc: np.ndarray) -> dict:
             "forward_ms": float(np.median(warm_fwd))}
 
 
+def tiers_phase(dev, tmp: Path, bundle: Path, hwc: np.ndarray) -> dict:
+    """The 4096² scene through predict_raster's three tiers in float32
+    (TF32 off), in this process: the whole-scene mosaic (default budgets),
+    the band over the scene in RAM (``device_budget_bytes=0``) and
+    ``predict_raster_streamed``. Holds banded == streamed bit for bit; the
+    whole-scene tier >= AGREE equal to the banded one and equal wherever
+    its top-two margin is >= 1e-5 (it adds a pixel's windows in another
+    order); the finalize on the card == the host ``finalize_mosaic`` on the
+    whole-scene sums, bit for bit, in all four modes (regression on class
+    0's sums); and blend_count == its plain version at the band's offsets
+    over the band's batches (most of them wrap from one window row to the
+    next), sums, counts and finalized rows bit for bit. Launch counts are
+    set to 0 before each tier and read after."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops.blend import (DeviceBand, DeviceMosaic, blend_and_count,
+                                          blend_and_count_reference)
+    from unet_tpu_torch.predict.merge import finalize_mosaic
+    from unet_tpu_torch.predict.predict import (Predictor, band_plan, predict_raster,
+                                                predict_raster_streamed)
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    pred32 = Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+    kw = dict(patch_size=PATCH, batch_size=BATCH, predictor=pred32, device=dev)
+    scene = str(tmp / "scene.tif")
+    windows = generate_windows(SCENE, SCENE, PATCH, 0.2)
+    outs, launches = {}, {}
+    with tf32_off(), quiet_stdout(tmp / "tiers.log"):
+        for tier, extra in (("full", {}), ("banded", {"device_budget_bytes": 0})):
+            blend_and_count.launches = 0
+            outs[tier] = predict_raster(str(bundle), scene, None, **kw, **extra)[0]
+            launches[tier] = blend_and_count.launches
+        blend_and_count.launches = 0
+        predict_raster_streamed(str(bundle), scene, str(tmp / "tiers_streamed.tif"), **kw)
+        launches["streamed"] = blend_and_count.launches
+        mosaic = DeviceMosaic(SCENE, SCENE, N_OUT, device=dev)
+        for s in range(0, len(windows), BATCH):
+            chunk = windows[s:s + BATCH]
+            x = np.stack([hwc[w.indices()] for w in chunk])
+            if len(chunk) < BATCH:
+                x = np.concatenate([x, np.repeat(x[-1:], BATCH - len(chunk), 0)])
+            mosaic.add_batch(pred32.predict_batch_device(x)[:len(chunk)],
+                             [w.y for w in chunk], [w.x for w in chunk])
+    outs["streamed"] = read_raster(tmp / "tiers_streamed.tif").data[0]
+    tiers = [r["tier"] for r in pred32.scenes]
+    if tiers != ["full", "banded", "streamed"]:
+        raise AssertionError(f"tiers taken: {tiers}")
+    batches, band_rows = band_plan(windows, BATCH)
+    adds = sum(len({w.y for w in b}) for b in batches)  # a batch's window rows
+    if launches != {"full": len(batches), "banded": adds, "streamed": adds}:
+        raise AssertionError(f"blend_count launches {launches} for {len(batches)} batches "
+                             f"and {adds} band adds")
+    summed, counter = mosaic.finalize()
+    fin_equal = {}
+    for name, mode in (("class_map", {}), ("all_classes", {"all_classes": True}),
+                       ("specific_class", {"specific_class": 1}),
+                       ("regression", {"regression": True})):
+        got, _ = mosaic.finish(**mode)
+        fin_equal[name] = bool(np.array_equal(got.cpu().numpy(),
+                                              finalize_mosaic(summed, counter, **mode)[0]))
+    top2 = np.sort(summed / counter, axis=0)[-2:]
+    margin = top2[1] - top2[0]
+    differ = outs["full"] != outs["banded"]
+    agree = 1.0 - float(differ.mean())
+    bit_equal = bool(np.array_equal(outs["banded"], outs["streamed"]))
+    full_is_host = bool(np.array_equal(outs["full"], finalize_mosaic(summed, counter)[0]))
+    # blend_count against its plain version at the band's offsets
+    band_k = DeviceBand(band_rows, SCENE, N_OUT, device=dev)
+    band_p = DeviceBand(band_rows, SCENE, N_OUT, device=dev, blend=blend_and_count_reference)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    band_equal, wrapping, band_err = True, 0, 0.0
+    for k, b in enumerate(batches):
+        probs = torch.rand((len(b), N_OUT, PATCH, PATCH), generator=g, device=dev)
+        for band in (band_k, band_p):
+            band.add_batch(probs, [w.y for w in b], [w.x for w in b])
+        band_err = max(band_err, (band_k.sum - band_p.sum).abs().max().item(),
+                       (band_k.count - band_p.count).abs().max().item())
+        band_equal &= torch.equal(band_k.sum, band_p.sum) and torch.equal(band_k.count,
+                                                                          band_p.count)
+        wrapping += b[0].y != b[-1].y
+        upto = batches[k + 1][0].y if k + 1 < len(batches) else SCENE
+        if upto > band_k.top:
+            rows_k = band_k.finalize_rows(upto, all_classes=True)[0]
+            band_equal &= torch.equal(rows_k, band_p.finalize_rows(upto, all_classes=True)[0])
+    torch.cuda.synchronize()
+    print(f"tiers at {SCENE}² in float32 (TF32 off): {tiers}, blend_count launches "
+          f"{launches} for {len(batches)} batches, {adds} band adds; banded vs streamed "
+          f"{'bit-equal' if bit_equal else 'NOT bit-equal'}; whole-scene vs banded "
+          f"{100 * agree:.4f}% equal, {int(differ.sum())} pixels differ, largest margin "
+          f"there {float(margin[differ].max()) if differ.any() else 0.0:.3g}; the "
+          f"whole-scene class map {'equals' if full_is_host else 'differs from'} the host "
+          f"finalize of its sums; finalize on the card == host finalize_mosaic: {fin_equal}; "
+          f"blend_count at band offsets ({band_rows}-row band, {len(batches)} batches, "
+          f"{wrapping} wrapping) {'bit-equal' if band_equal else 'NOT bit-equal'} to plain")
+    if not bit_equal:
+        raise AssertionError("banded and streamed class maps differ")
+    if agree < AGREE or (differ.any() and float(margin[differ].max()) >= 1e-5):
+        raise AssertionError(f"whole-scene vs banded: {agree} equal")
+    if not all(fin_equal.values()):
+        raise AssertionError(f"finalize on the card differs from the host: {fin_equal}")
+    if not band_equal or wrapping == 0:
+        raise AssertionError(f"blend_count at band offsets: equal {band_equal}, "
+                             f"max {band_err}, {wrapping} wrapping batches")
+    del pred32, mosaic, band_k, band_p
+    return {"launches": launches, "agree": agree, "band_rows": band_rows,
+            "wrapping": wrapping, "finalize_equal": fin_equal}
+
+
+def big_scene(path: Path, img: np.ndarray, transform, crs) -> None:
+    """The BIG² 3-band uint8 scene: the 4096² scene tiled and cut to BIG²,
+    written as an uncompressed strip GeoTIFF."""
+    from unet_tpu_torch.geo import write_raster
+
+    reps = -(-BIG // img.shape[1])
+    write_raster(path, np.tile(img, (1, reps, reps))[:, :BIG, :BIG], transform=transform,
+                 crs=crs)
+
+
+def big_serve_phase(dev, tmp: Path, bundle: Path, pred, img: np.ndarray, transform,
+                    crs) -> dict:
+    """A scene of any size: the BIG² scene with the flagship bundle in bf16.
+    Its mosaic (BIG² × 4 × 4 bytes) exceeds the 4 GiB device budget, so the
+    default budgets take the band over the scene in RAM. Runs: ``python -m
+    unet_tpu_torch serve`` (default budgets) and ``serve --stream`` in
+    subprocesses, then in this process with the model resident the banded
+    tier and ``predict_raster_streamed``. Holds: the two in-process maps
+    bit-equal; each CLI map >= AGREE equal to its in-process twin; every
+    pixel a valid class and the scene's georeference;
+    blend_count launched once for each add of the banded core (a batch's
+    window row) in every run (counts set to 0 before each in-process run;
+    a new process for each CLI run). Peak host RSS is sampled
+    (``rss_peak``): the CLI process's own, and this process's during each
+    in-process run beside its resident set before it."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops.blend import blend_and_count
+    from unet_tpu_torch.predict.predict import band_plan, predict_raster, predict_raster_streamed
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    t0 = time.perf_counter()
+    scene = tmp / "big.tif"
+    big_scene(scene, img, transform, crs)
+    scene_s = time.perf_counter() - t0
+    batches, band_rows = band_plan(generate_windows(BIG, BIG, PATCH, 0.2), BATCH)
+    wrapping = [b for b in batches if b[0].y != b[-1].y]
+    n_windows = sum(len(b) for b in batches)
+    log(f"{BIG}² scene written in {scene_s:.1f} s")
+    runs, maps = {}, {}
+
+    def read_map(path: Path) -> np.ndarray:
+        out = read_raster(path)
+        if (out.data.dtype != np.uint8 or out.data.shape != (1, BIG, BIG)
+                or int(out.data.max()) >= N_OUT):
+            raise AssertionError(f"class map {out.data.dtype} {out.data.shape}")
+        if tuple(out.transform) != transform or out.crs != crs:
+            raise AssertionError(f"georeference {out.transform} {out.crs}")
+        return out.data[0]
+
+    for name, extra in (("CLI serve", []), ("CLI serve --stream", ["--stream"])):
+        out = tmp / f"big_{len(runs)}.tif"
+        st = serve_cli(bundle, scene, out, tmp / f"big_{len(runs)}.json", extra)
+        (rec,) = st["scenes"]
+        runs[name] = {"seconds": st["seconds"], "tiles_per_s": st["tiles_per_s"],
+                      "finalize_s": rec["finalize_s"], "tier": rec["tier"],
+                      "adds": rec["adds"], "launches": st["launches"]["blend_count"],
+                      "read_s": rec.get("read_s"), "write_s": rec["write_s"],
+                      "peak_device_gb": st["peak_device_bytes"] / 1e9,
+                      "peak_rss_gb": st["peak_rss_gb"], "rss_before_gb": None}
+        maps[name] = read_map(out)
+    for name in ("banded in process", "streamed in process"):
+        blend_and_count.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rss_before = vm_rss_bytes(os.getpid())
+        with rss_peak(os.getpid(), {}) as rss:
+            t0 = time.perf_counter()
+            if name.startswith("banded"):
+                out = tmp / "big_banded.tif"
+                maps[name] = predict_raster(str(bundle), str(scene), str(out),
+                                            patch_size=PATCH, batch_size=BATCH,
+                                            predictor=pred, device=dev)[0]
+            else:
+                out = tmp / "big_streamed.tif"
+                predict_raster_streamed(str(bundle), str(scene), str(out), patch_size=PATCH,
+                                        batch_size=BATCH, predictor=pred, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        rec = pred.scenes[-1]
+        runs[name] = {"seconds": secs, "tiles_per_s": rec["windows"] / secs,
+                      "finalize_s": rec["finalize_s"], "tier": rec["tier"],
+                      "adds": rec["adds"], "launches": blend_and_count.launches,
+                      "read_s": rec.get("read_s"), "write_s": rec["write_s"],
+                      "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_rss_gb": rss["gb"], "rss_before_gb": rss_before / 1e9}
+        if name.startswith("banded"):
+            read_map(out)
+        else:
+            maps[name] = read_map(out)
+    for name, r in runs.items():
+        rss = f"{r['peak_rss_gb']:.2f} GB" + ("" if r["rss_before_gb"] is None else
+                                              f" (this process, {r['rss_before_gb']:.2f} GB "
+                                              "before the run)")
+        read = "" if r["read_s"] is None else f"reading the scene {r['read_s']:.2f} s, "
+        print(f"{BIG}² {name}: tier {r['tier']}, {n_windows} windows in {r['seconds']:.2f} s = "
+              f"{r['tiles_per_s']:.1f} tiles/s; finalize {r['finalize_s']:.3f} s (device "
+              f"time); host {read}writing the map {r['write_s']:.2f} s; blend_count launches "
+              f"{r['launches']} for {len(batches)} batches in {r['adds']} adds; peak card "
+              f"memory {r['peak_device_gb']:.2f} GB; peak host RSS {rss}")
+    equal_in = bool(np.array_equal(maps["banded in process"], maps["streamed in process"]))
+    agree = {"CLI serve": float((maps["CLI serve"] == maps["banded in process"]).mean()),
+             "CLI serve --stream": float((maps["CLI serve --stream"]
+                                          == maps["streamed in process"]).mean())}
+    print(f"{BIG}² maps: banded vs streamed in process "
+          f"{'bit-equal' if equal_in else 'NOT bit-equal'}; CLI vs in process "
+          + ", ".join(f"{k} {100 * v:.4f}%" for k, v in agree.items())
+          + f"; {band_rows}-row band, {len(wrapping)} of {len(batches)} batches wrap rows")
+    want_tiers = {"CLI serve": "banded", "CLI serve --stream": "streamed",
+                  "banded in process": "banded", "streamed in process": "streamed"}
+    if any(runs[k]["tier"] != v for k, v in want_tiers.items()):
+        raise AssertionError(f"tiers: {({k: r['tier'] for k, r in runs.items()})}")
+    adds = sum(len({w.y for w in b}) for b in batches)
+    if any(r["launches"] != adds or r["adds"] != adds for r in runs.values()):
+        raise AssertionError(f"blend_count launches for {adds} adds: "
+                             f"{({k: r['launches'] for k, r in runs.items()})}")
+    if not equal_in or min(agree.values()) < AGREE:
+        raise AssertionError(f"{BIG}² maps: in process equal {equal_in}, CLI {agree}")
+    return {"scene": scene, "runs": runs, "batches": batches, "band_rows": band_rows,
+            "wrapping": wrapping, "agree": agree, "scene_s": scene_s}
+
+
+def wrapping_launch_ms(dev, big: dict) -> dict:
+    """blend_count's device time (torch.profiler, the kernel's own
+    intervals) at the BIG² band's offsets on random probabilities: a launch
+    for a batch within one window row; a launch for a batch that wraps from
+    one window row to the next, whole (its bounding box as wide as the
+    scene) and split into one launch a window row, as the banded core adds
+    it."""
+    from unet_tpu_torch.ops.blend import blend_and_count
+
+    band_sum = torch.zeros((N_OUT, big["band_rows"], BIG), device=dev)
+    band_count = torch.zeros((big["band_rows"], BIG), device=dev)
+    probs = torch.rand((BATCH, N_OUT, PATCH, PATCH), device=dev)
+
+    def launches(b, split):
+        rows = np.array([w.y - b[0].y for w in b])
+        cols = np.array([w.x for w in b])
+        if not split:
+            return [(rows, cols, 0, len(b))]
+        cut = [i for i in range(1, len(b)) if b[i].y != b[i - 1].y]
+        edges = [0, *cut, len(b)]
+        return [(rows[i:j], cols[i:j], i, j) for i, j in zip(edges, edges[1:])]
+
+    out = {}
+    within = [b for b in big["batches"] if b[0].y == b[-1].y]
+    for kind, group, split in (("within a row", within, False),
+                               ("wrapping, whole", big["wrapping"], False),
+                               ("wrapping, split", big["wrapping"], True)):
+        calls = [c for b in group for c in launches(b, split)]
+
+        def run():
+            for r, q, i, j in calls:
+                blend_and_count(band_sum, band_count, probs[i:j], r, q)
+
+        tr = device_trace(run, f"blend_count {kind}", reps=3)
+        kernel_ms = sum(ms for name, ms in tr["by_name"].items() if "blend_count" in name)
+        out[kind] = {"batches": len(group), "launches": len(calls),
+                     "kernel_ms_per_batch": kernel_ms * len(calls) / len(group)}
+    ratio = out["wrapping, whole"]["kernel_ms_per_batch"] / out["within a row"]["kernel_ms_per_batch"]
+    print(f"blend_count at the {BIG}² band (torch.profiler, kernel time a batch): "
+          + "; ".join(f"{k} {v['kernel_ms_per_batch'] * 1e3:.1f} us ({v['batches']} batches, "
+                      f"{v['launches']} launches)" for k, v in out.items())
+          + f"; a whole wrapping batch / a batch within a row {ratio:.2f}")
+    out["ratio"] = ratio
+    return out
+
+
 def shuffle_as_convt(mod, x: torch.Tensor) -> torch.Tensor:
     """What ``mod`` (a PixelShuffleICNR) computes, as the JAX package's
     ``_ShuffleConv`` formulates it: one k2-s2 transposed conv whose tap
@@ -1212,17 +1560,23 @@ def quiet_stdout(path: Path):
 
 
 @contextlib.contextmanager
-def timed_calls(targets: list, spent: dict):
+def timed_calls(targets: list, spent: dict, sync: bool = False):
     """Replace each (owner, attribute) callable with one that adds its
-    seconds to ``spent[attribute]``; restored on exit."""
+    seconds to ``spent[attribute]``; restored on exit. With ``sync`` the
+    card is synchronized before the clock starts (earlier queued work is
+    not counted) and before it stops (the call's own device work is)."""
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr in targets]
 
     def wrap(attr, fn):
         def timed(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             finally:
+                if sync:
+                    torch.cuda.synchronize()
                 spent[attr] = spent.get(attr, 0.0) + time.perf_counter() - t0
         return timed
 
@@ -1399,9 +1753,10 @@ def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, trans
         for mode in ("host", "device"):
             blend_and_count.launches = 0
             spent: dict = {}
+            # the device merge finalizes on the card (DeviceMosaic.finish)
             targets = ([(MosaicAccumulator, "finalize")] if mode == "host"
-                       else [(DeviceMosaic, "finalize"), (pp, "finalize_mosaic")])
-            with timed_calls(targets, spent):
+                       else [(DeviceMosaic, "finish")])
+            with timed_calls(targets, spent, sync=mode == "device"):
                 t0 = time.perf_counter()
                 run(mode, f"warm{mode}")
                 secs = time.perf_counter() - t0
@@ -1505,7 +1860,7 @@ def main() -> int:
                                           blend_and_count_reference)
     from unet_tpu_torch.ops.probe import SOURCES as KERNELS
     from unet_tpu_torch.predict.merge import finalize_mosaic
-    from unet_tpu_torch.predict.predict import Predictor, predict_raster
+    from unet_tpu_torch.predict.predict import Predictor, predict_raster, predict_raster_streamed
     from unet_tpu_torch.tiling.windows import generate_windows
 
     t_start = time.perf_counter()
@@ -1584,7 +1939,8 @@ def main() -> int:
               f"{stats['seconds']:.2f} s = {stats['tiles_per_s']:.1f} tiles/s; forward "
               f"{fwd_warm:.1f} ms/batch of {BATCH} after one warm batch "
               f"(first {fwd[0]:.1f} ms); blend_count launches {launches}; "
-              f"classes {classes}")
+              f"classes {classes}; peak host RSS of the CLI process {stats['peak_rss_gb']:.2f} "
+              f"GB (sampled), peak card memory {stats['peak_device_bytes'] / 1e9:.2f} GB")
 
         log(f"-- phase 5 at {time.perf_counter() - t_start:.1f} s")
         # 5. kernel vs plain on the served scene's windows
@@ -1616,6 +1972,13 @@ def main() -> int:
         t0 = time.perf_counter()
         cmap, _ = finalize_mosaic(sk, ck5)
         host_s["finalize_argmax"] = time.perf_counter() - t0
+        # what serve does now: finalize on the card, copy the class map
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cmap_card = mos_k.finish()[0].cpu().numpy()
+        host_s["finalize_on_card_and_copy"] = time.perf_counter() - t0
+        if not np.array_equal(cmap_card, cmap):
+            raise AssertionError("the finalize on the card differs from finalize_mosaic")
         t0 = time.perf_counter()
         write_raster(tmp / "again.tif", cmap, transform=transform, crs=crs)
         host_s["write_class_map"] = time.perf_counter() - t0
@@ -1633,10 +1996,12 @@ def main() -> int:
             raise AssertionError(f"warm serve launched blend_count {warm_launches} "
                                  f"times for {n_batches} batches")
         warm_fwd_s = sum(pred.forward_ms()[n_fwd:]) / 1e3
+        warm_rec = pred.scenes[-1]
         print(f"warm serve (model resident, same scene): {warm_s:.2f} s = "
               f"{len(windows) / warm_s:.1f} tiles/s; forwards (CUDA events) "
-              f"{warm_fwd_s:.3f} s = {100 * warm_fwd_s / warm_s:.1f}% of it; "
-              f"blend_count launches {warm_launches}")
+              f"{warm_fwd_s:.3f} s = {100 * warm_fwd_s / warm_s:.1f}% of it; tier "
+              f"{warm_rec['tier']}, finalize on the card {warm_rec['finalize_s'] * 1e3:.2f} ms "
+              f"(device time, with the class map's copy); blend_count launches {warm_launches}")
         max_err = float(max(np.abs(sk - sp).max(), np.abs(ck5 - cp5).max()))
         if not (np.array_equal(sk, sp) and np.array_equal(ck5, cp5)):
             raise AssertionError(f"served-scene mosaics differ: max {max_err}")
@@ -1665,6 +2030,12 @@ def main() -> int:
         # 5b. the parity + self-attention model: serve cold and warm, bf16
         # against float32 at 512² and at a side not divisible by 4
         par_serve = parity_serve_phase(dev, tmp, transform, crs, hwc)
+
+        log(f"-- phase 5c at {time.perf_counter() - t_start:.1f} s")
+        # 5c. any-size serve: the three tiers at 4096² in float32, then a
+        # BIG² scene through the CLI and in this process, banded and streamed
+        tiers = tiers_phase(dev, tmp, bundle, hwc)
+        big = big_serve_phase(dev, tmp, bundle, pred, np.moveaxis(hwc, 2, 0), transform, crs)
 
         log(f"-- phase 6 at {time.perf_counter() - t_start:.1f} s")
         # 6. the training kernels against their plain versions; the two
@@ -1745,8 +2116,10 @@ def main() -> int:
 
         empty_dev_ms = device_trace(lambda: empty_kernel(dev), "the empty kernel")["ms"]
         print(f"empty kernel device time (torch.profiler): {empty_dev_ms * 1e3:.2f} us")
+        wrap_ms = wrapping_launch_ms(dev, big)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         profs, idle = {}, {}
+        big_streamed = f"warm streamed serve {BIG}²"
         for what, run in (
                 ("warm serve", lambda: predict_raster(
                     str(bundle), str(tmp / "scene.tif"), str(tmp / "warm.tif"),
@@ -1761,9 +2134,15 @@ def main() -> int:
                 (f"{PROFILED_STEPS} parity train steps", lambda: [
                     par_trainer.train_step(*par_in["host"][i % len(par_in["host"])])
                     for i in range(PROFILED_STEPS)]),
-                ("device-merge predict", predicted["run"])):
+                ("device-merge predict", predicted["run"]),
+                (big_streamed, lambda: predict_raster_streamed(
+                    str(bundle), str(big["scene"]), str(tmp / "big_profiled.tif"),
+                    patch_size=PATCH, batch_size=BATCH, predictor=pred, device=dev))):
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
+            # the BIG² serve's 151 forwards: device activity only, which
+            # is all the idle share reads, to keep the trace small
+            with torch.profiler.profile(
+                    activities=acts[1:] if what == big_streamed else acts) as prof:
                 t0 = time.perf_counter()
                 run()
                 torch.cuda.synchronize()
@@ -1833,6 +2212,19 @@ def main() -> int:
         "flip_scale": {"pipeline_train": piped["launches"]["flip_scale"]},
         "offset_copy": {"pipeline": 0},
     }
+    any_size = {  # each kernel's launches on the any-size serve, counts set to 0 before
+        "blend_count": {"tiers_4096": tiers["launches"],
+                        f"serve_{BIG}": {k: r["launches"] for k, r in big["runs"].items()},
+                        f"batches_{BIG}": len(big["batches"]),
+                        "within_row_kernel_ms": wrap_ms["within a row"]["kernel_ms_per_batch"],
+                        "wrapping_whole_kernel_ms":
+                            wrap_ms["wrapping, whole"]["kernel_ms_per_batch"],
+                        "wrapping_split_kernel_ms":
+                            wrap_ms["wrapping, split"]["kernel_ms_per_batch"],
+                        "idle_share_streamed": idle.get(big_streamed)},
+        "bn_sum_sumsq": {"any_size": 0}, "bn_bwd_sums": {"any_size": 0},
+        "flip_scale": {"any_size": 0}, "offset_copy": {"any_size": 0},
+    }
     for kname, n in pipeline.items():
         path_counts = [v for k, v in n.items() if k in ("predict_device_merge", "pipeline_train")]
         if any(c <= 0 for c in path_counts):
@@ -1869,7 +2261,7 @@ def main() -> int:
         {"name": kname, "route": "cuda", "source": cuda_src + src, "replaces": replaces,
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
-         "pipeline": pipeline[kname]}
+         "pipeline": pipeline[kname], "any_size": any_size[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

@@ -105,11 +105,13 @@ def test_device_mosaic_needs_cuda_unless_cpu_is_asked(monkeypatch):
 
 def test_mosaic_larger_than_free_card_memory_is_not_yet_ported():
     """A 16384² 3-class mosaic (4 GiB) fits exactly that much free memory
-    and raises one byte short; it never moves to the host instead."""
+    and raises one byte short, naming the host merge; it never moves to the
+    host instead. (Serving takes the banded mosaic there; only the device
+    merge needs the whole mosaic.)"""
     nbytes = tblend.mosaic_bytes(16384, 16384, 3)
     assert nbytes == 4 << 30
     tblend.check_mosaic_fits(nbytes, nbytes)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="merge on the host"):
         tblend.check_mosaic_fits(nbytes, nbytes - 1)
 
 

@@ -34,6 +34,20 @@ def _case(seed, n, h, w, c, th, tw, dev):
     return tiles, rows, cols, mosaic, torch.zeros((h, w), device=dev)
 
 
+def _tiny_bundle(path, patch=64):
+    from unet_tpu_torch.models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
+    from unet_tpu_torch.train.checkpoint import export_bundle, to_flax_variables
+
+    model = init_weights(build_unet("xresnet18", n_out=3, c_in=3),
+                         torch.Generator().manual_seed(0))
+    export_bundle(path, path.name, to_flax_variables(model.state_dict()),
+                  {"ARCHITECTURE": "xresnet18", "n_out": 3, "number_of_bands": 3,
+                   "patch_size": patch, "enable_regression": False, "dtype_str": "uint8",
+                   "normalize": "unit", "tpu_opt": True,
+                   "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION})
+    return str(path)
+
+
 @pytest.mark.parametrize("n,c", [(16, 3), (40, 2), (2, 1), (70, 4)])
 def test_blend_count_bit_equal_to_plain(dev, n, c):
     """Up to and past 32 tiles (the kernel's mask width)."""
@@ -58,7 +72,9 @@ def test_blend_count_rejects_bad_input(dev):
 
 
 def test_device_mosaic_beyond_card_memory_is_not_yet_ported(dev):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """A whole mosaic past the card's memory raises (the device merge needs
+    it whole; serving takes the band)."""
+    with pytest.raises(RuntimeError, match="merge on the host"):
         blend.DeviceMosaic(200_000, 200_000, 3, device=dev)
 
 
@@ -79,18 +95,10 @@ def test_save_predictions_device_merge_equals_host_merge(dev, tmp_path):
     (both add the same float32 probabilities in tile order), in the default
     and the all_classes mode; the tiles include a partial last batch."""
     from unet_tpu_torch.geo import read_raster, write_raster
-    from unet_tpu_torch.models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
     from unet_tpu_torch.predict.predict import Predictor, save_predictions
     from unet_tpu_torch.tiling import split_raster
-    from unet_tpu_torch.train.checkpoint import export_bundle, to_flax_variables
 
-    model = init_weights(build_unet("xresnet18", n_out=3, c_in=3),
-                         torch.Generator().manual_seed(0))
-    export_bundle(tmp_path / "m", "m", to_flax_variables(model.state_dict()),
-                  {"ARCHITECTURE": "xresnet18", "n_out": 3, "number_of_bands": 3,
-                   "patch_size": 64, "enable_regression": False, "dtype_str": "uint8",
-                   "normalize": "unit", "tpu_opt": True,
-                   "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION})
+    _tiny_bundle(tmp_path / "m")
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (3, 150, 182)).astype(np.uint8)
     t = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
@@ -109,6 +117,92 @@ def test_save_predictions_device_merge_equals_host_merge(dev, tmp_path):
         a, b = read_raster(on_card), read_raster(host)
         np.testing.assert_array_equal(a.data, b.data)
         assert tuple(a.transform) == t and a.crs == b.crs
+
+
+def test_band_equals_full_mosaic_through_blend_count(dev):
+    """The banded serve's batches over a 300 × 500 scene at 64² windows
+    and batch 7 (10 windows a window row, so most batches wrap rows): a
+    DeviceBand and a whole DeviceMosaic, both through the kernel, give the
+    same finalized output bit for bit in every mode, and the band's sums
+    equal the plain version's after every batch."""
+    from unet_tpu_torch.predict.predict import band_plan
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    h, w, c = 300, 500, 3
+    batches, rows = band_plan(generate_windows(h, w, 64, 0.2), 7)
+    assert sum(b[0].y != b[-1].y for b in batches) > len(batches) // 2
+    g = torch.Generator(device=dev).manual_seed(3)
+    probs = [torch.rand((len(b), c, 64, 64), generator=g, device=dev) for b in batches]
+    for mode in ({}, {"all_classes": True}, {"specific_class": 2}, {"regression": True}):
+        band = blend.DeviceBand(rows, w, c, device=dev)
+        plain = blend.DeviceBand(rows, w, c, device=dev,
+                                 blend=blend.blend_and_count_reference)
+        full = blend.DeviceMosaic(h, w, c, device=dev)
+        before = blend.blend_and_count.launches
+        parts = []
+        for k, (b, p) in enumerate(zip(batches, probs)):
+            ys, xs = [win.y for win in b], [win.x for win in b]
+            for m in (band, plain, full):
+                m.add_batch(p, ys, xs)
+            assert torch.equal(band.sum, plain.sum) and torch.equal(band.count, plain.count)
+            upto = batches[k + 1][0].y if k + 1 < len(batches) else h
+            if upto > band.top:
+                parts.append(band.finalize_rows(upto, **mode)[0])
+                plain.finalize_rows(upto, **mode)
+        assert blend.blend_and_count.launches - before == 2 * len(batches)
+        want, _ = full.finish(**mode)
+        assert torch.equal(torch.cat(parts, dim=-2), want)
+
+
+@pytest.mark.parametrize("mode", [{}, {"all_classes": True}, {"specific_class": 1},
+                                  {"regression": True}])
+def test_finalize_on_the_card_equals_numpy(dev, mode):
+    """finalize_mosaic_torch on the card against the host finalize_mosaic on
+    the same sums, bit for bit, with zero counts and exact ties."""
+    from unet_tpu_torch.predict.merge import finalize_mosaic, finalize_mosaic_torch
+
+    rng = np.random.default_rng(4)
+    counter = rng.integers(0, 5, (300, 257)).astype(np.float32)
+    summed = (rng.uniform(size=(3, 300, 257)) * counter).astype(np.float32)
+    summed[1, :7] = summed[0, :7]
+    summed[:, counter == 0] = 0
+    want, want_nodata = finalize_mosaic(summed, counter, **mode)
+    got, nodata = finalize_mosaic_torch(torch.from_numpy(summed).to(dev),
+                                        torch.from_numpy(counter).to(dev), **mode)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert nodata == want_nodata
+
+
+def test_streamed_equals_banded_in_bf16(dev, tmp_path):
+    """predict_raster_streamed and predict_raster's banded tier share the
+    banded core, so their bf16 class maps are equal bit for bit; both
+    launch blend_count once for each window row of each batch."""
+    from unet_tpu_torch.geo import read_raster, write_raster
+    from unet_tpu_torch.predict.predict import (Predictor, predict_raster,
+                                                predict_raster_streamed)
+
+    bundle = _tiny_bundle(tmp_path / "m")
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (3, 333, 517)).astype(np.uint8)
+    t = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
+    write_raster(tmp_path / "scene.tif", img, transform=t, crs="EPSG:25832")
+    pred = Predictor(bundle, batch_size=6, device=dev)
+    launches = []
+    before = blend.blend_and_count.launches
+    banded, _, _ = predict_raster(bundle, str(tmp_path / "scene.tif"), predictor=pred,
+                                  device_budget_bytes=0, device=dev)
+    launches.append(blend.blend_and_count.launches - before)
+    before = blend.blend_and_count.launches
+    predict_raster_streamed(bundle, str(tmp_path / "scene.tif"), str(tmp_path / "s.tif"),
+                            predictor=pred, device=dev)
+    launches.append(blend.blend_and_count.launches - before)
+    assert [s["tier"] for s in pred.scenes] == ["banded", "streamed"]
+    rec = pred.scenes[0]
+    assert rec["adds"] == rec["batches"] + rec["wrapping_batches"] > rec["batches"]
+    assert launches == [rec["adds"]] * 2
+    back = read_raster(tmp_path / "s.tif")
+    np.testing.assert_array_equal(back.data[0], banded)
+    assert tuple(back.transform) == t
 
 
 # --- the training kernels: bn_stats (forward and backward) and flip_scale ---

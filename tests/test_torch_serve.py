@@ -176,9 +176,28 @@ def test_cli_serve_on_cpu(served, tmp_path):
     assert st["launches"] == {"blend_count": 0}  # the CPU never launches it
 
 
-@pytest.mark.parametrize("flag", [["--stream"], ["--spatial", "2"]])
-def test_cli_unported_options_fail_clearly(served, tmp_path, flag, capsys):
-    rc = cli(["serve", served["bundle"], served["scene"], str(tmp_path / "o.tif"),
+def test_cli_stream_on_cpu(served, tmp_path):
+    """``serve --stream`` writes the map of the in-process streamed path."""
+    out = tmp_path / "cli.tif"
+    assert cli(["serve", served["bundle"], served["scene"], str(out), "--stream",
+                "--patch-size", str(PATCH), "--batch-size", str(BATCH),
+                "--device", "cpu"]) == 0
+    tp.predict_raster_streamed(served["bundle"], served["scene"], str(tmp_path / "in.tif"),
+                               patch_size=PATCH, batch_size=BATCH, device="cpu")
+    back = read_raster(out)
+    np.testing.assert_array_equal(back.data, read_raster(tmp_path / "in.tif").data)
+    assert back.data.dtype == np.uint8 and tuple(back.transform) == TRANSFORM
+
+
+@pytest.mark.parametrize("case", ["spatial", "artifact"])
+def test_cli_unported_options_fail_clearly(served, tmp_path, case, capsys):
+    """``--spatial 2`` and a serving artifact (``.uta``) as the model."""
+    model, flag = served["bundle"], ["--spatial", "2"]
+    if case == "artifact":
+        model, flag = str(tmp_path / "m.uta"), []
+        with open(model, "wb") as f:
+            np.savez(f, __utaot__=np.zeros(1))
+    rc = cli(["serve", model, served["scene"], str(tmp_path / "o.tif"),
               "--device", "cpu", *flag])
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err

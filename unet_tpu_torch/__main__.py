@@ -3,7 +3,7 @@
     python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch predict models/run1 pred/img_tiles --merge [--device-merge]
-    python -m unet_tpu_torch serve models/run1 scene.tif out.tif
+    python -m unet_tpu_torch serve models/run1 scene.tif out.tif [--stream]
     python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
 
@@ -12,14 +12,18 @@ Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
 ``predict`` predicts a folder of tiles into predicted tiles or, with
 ``--merge``, one overlap-averaged mosaic (``--device-merge``: accumulated
 on the card by the ``blend_count`` kernel).
+``serve`` takes a scene of any size: a whole-scene mosaic on the card while
+it fits, else a band of rows on the card over the scene in RAM, else (past
+the host budget, or with ``--stream``) windowed reads with the finished
+rows streamed to the output file.
 ``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
 ``--self-attention`` in either), ``predict`` and ``serve`` (any bundle:
 tpu_opt, parity, imported) and ``import-model`` (a fastai DynamicUnet
 state_dict → a parity bundle) also take ``--device`` (default ``cuda``);
 ``train`` and ``serve``
 take ``--stats-json`` (write the run's timings, kernel launch counts and,
-for ``train``, the loader's decode path to a JSON file); both compute in
-bf16.
+for ``train``, the loader's decode path, for ``serve`` each scene's tier
+to a JSON file); both compute in bf16.
 ``doctor`` checks whether this machine is ready: versions, the CUDA
 device, the nvcc toolchain, the native decoder and, with ``--kernels``
 (also spelled ``--pallas``, as in ``unet_tpu``), every CUDA kernel against
@@ -148,12 +152,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["none", "deflate", "lzw", "packbits", "jpeg", "jpeg-lossless"],
                     help="output mosaic compression")
     sv.add_argument("--stream", action="store_true",
-                    help="O(band)-memory streamed path (not yet ported)")
+                    help="force the O(band)-memory streamed path (windowed "
+                         "reads, strip-streamed output); automatic for "
+                         "scenes whose mosaic would exceed host RAM")
     sv.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     sv.add_argument("--stats-json", default=None,
                     help="write windows, batches, seconds, tiles/s, forward "
-                         "ms per batch and kernel launch counts here")
+                         "ms per batch, each scene's tier and finalize "
+                         "seconds, kernel launch counts and peak card memory "
+                         "here")
 
     im = sub.add_parser(
         "import-model",
@@ -329,14 +337,13 @@ def _serve(args) -> int:
     import torch
 
     from .ops.blend import blend_and_count
-    from .predict.predict import Predictor, predict_raster, serve_scenes
-    from .tiling.windows import generate_windows
-    from .geo import tiff
+    from .predict.predict import (Predictor, predict_raster, predict_raster_streamed,
+                                  serve_scenes)
 
     if args.spatial > 1:
         raise NotImplementedError("--spatial > 1 is not yet ported")
-    if args.stream:
-        raise NotImplementedError("--stream is not yet ported")
+    if _is_artifact(args.model):
+        raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
     compress = _compress_arg(args)
     predictor = Predictor(args.model, batch_size=args.batch_size,
                           device=args.device, dtype=torch.bfloat16, tta=args.tta)
@@ -349,30 +356,36 @@ def _serve(args) -> int:
                   device=predictor.device, dtype=predictor.dtype)
     t0 = time.perf_counter()
     if len(args.raster) > 1:
+        # as in unet_tpu: several scenes go through serve_scenes, each on
+        # its own tier, and --stream is not consulted
         outs = serve_scenes(args.model, args.raster, args.output, **common)
         print(f"{len(outs)} mosaics in {args.output}")
+    elif args.stream:
+        predict_raster_streamed(args.model, args.raster[0], args.output, **common)
+        print(f"Mosaic streamed to {args.output}")
     else:
         arr, _, _ = predict_raster(args.model, args.raster[0], args.output, **common)
-        print(f"Mosaic {arr.shape} written to {args.output}")
+        if arr is None:
+            print(f"Mosaic streamed to {args.output}")
+        else:
+            print(f"Mosaic {arr.shape} written to {args.output}")
     seconds = time.perf_counter() - t0
     if args.stats_json:
-        patch = int(args.patch_size or predictor.manifest.get("patch_size", 400))
-        n_windows = n_batches = 0
-        for rp in args.raster:
-            info = tiff.read_info(rp)
-            n = len(generate_windows(info.height, info.width, patch,
-                                     args.patch_overlap))
-            n_windows += n
-            n_batches += -(-n // args.batch_size)
+        scenes = predictor.scenes
+        n_windows = sum(s["windows"] for s in scenes)
+        cuda = predictor.device.type == "cuda"
         stats = {
             "device": str(predictor.device),
             "device_name": _device_name(predictor.device),
             "windows": n_windows,
-            "batches": n_batches,
+            "batches": sum(s["batches"] for s in scenes),
             "seconds": seconds,
             "tiles_per_s": n_windows / seconds,
             "forward_ms": predictor.forward_ms(),
+            "scenes": scenes,
             "launches": {"blend_count": blend_and_count.launches},
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(predictor.device)
+                                  if cuda else None),
         }
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1)

@@ -2,16 +2,19 @@
 
 Counterpart of ``unet_tpu/ops/blend.py``. The mosaic's probability sum
 (C, H, W) and overlap counter (H, W) stay in device memory; each predicted
-batch is scatter-added at its window offsets, and only the finished mosaic
-crosses to the host once.
+batch is scatter-added at its window offsets, the finalize (divide, argmax
+or select) runs there too, and only the finished output crosses to the
+host.
 
 * ``blend_and_count`` — binding of the CUDA kernel ``csrc/blend_count.cu``
   (one launch per batch, bit-identical to the sequential loop). CUDA
   tensors only; anything else raises.
 * ``blend_and_count_reference`` — the plain PyTorch version: the
   sequential loop itself. The CPU path and the tests use it.
-* ``DeviceMosaic`` — the accumulator: on ``cuda`` it calls the kernel, on
-  ``cpu`` the plain version.
+* ``DeviceMosaic`` — the accumulator of a whole scene: on ``cuda`` it
+  calls the kernel, on ``cpu`` the plain version.
+* ``DeviceBand`` — the same over a band of rows that moves down the scene,
+  for scenes of any size: the sums stay O(band) on the device.
 """
 
 from __future__ import annotations
@@ -120,15 +123,28 @@ def mosaic_bytes(height: int, width: int, n_classes: int) -> int:
     return height * width * (n_classes + 1) * 4
 
 
+def free_device_bytes(device: torch.device) -> int:
+    """Bytes a new tensor can take on ``device``: the card's free memory
+    plus what PyTorch's allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+
+
+def _default_blend(device: torch.device) -> Callable:
+    """The kernel on ``cuda``, the plain version on ``cpu``."""
+    return blend_and_count if device.type == "cuda" else blend_and_count_reference
+
+
 def check_mosaic_fits(nbytes: int, free_bytes: int) -> None:
-    """Raise ``NotImplementedError`` when the mosaic exceeds the card's free
-    memory: a banded on-card mosaic is not ported yet, and the mosaic never
-    moves to the host instead."""
+    """Raise ``RuntimeError`` when a whole-scene mosaic exceeds the card's
+    free memory. Only ``save_predictions --device-merge`` needs the whole
+    mosaic on the card; serving picks the banded mosaic instead, and the
+    sums never move to the host."""
     if nbytes > free_bytes:
-        raise NotImplementedError(
+        raise RuntimeError(
             f"mosaic needs {nbytes / 1e9:.1f} GB, the card has "
-            f"{free_bytes / 1e9:.1f} GB free; a banded on-card mosaic is not "
-            "yet ported")
+            f"{free_bytes / 1e9:.1f} GB free; merge on the host instead "
+            "(predict --merge without --device-merge)")
 
 
 class DeviceMosaic:
@@ -142,19 +158,14 @@ class DeviceMosaic:
                  device="cuda", blend: Optional[Callable] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
-            cached = (torch.cuda.memory_reserved(self.device)
-                      - torch.cuda.memory_allocated(self.device))
-            check_mosaic_fits(mosaic_bytes(height, width, n_classes), free + cached)
+            check_mosaic_fits(mosaic_bytes(height, width, n_classes),
+                              free_device_bytes(self.device))
         self.height, self.width, self.n_classes = height, width, n_classes
         self.sum = torch.zeros((n_classes, height, width), dtype=torch.float32,
                                device=self.device)
         self.count = torch.zeros((height, width), dtype=torch.float32,
                                  device=self.device)
-        if blend is None:
-            blend = (blend_and_count if self.device.type == "cuda"
-                     else blend_and_count_reference)
-        self.blend = blend
+        self.blend = blend or _default_blend(self.device)
 
     def add_batch(self, probs: torch.Tensor, rows, cols) -> None:
         """probs: (N, C, th, tw) on the mosaic's device; rows/cols host
@@ -166,7 +177,71 @@ class DeviceMosaic:
                    probs.to(torch.float32).contiguous(), rows, cols)
 
     def finalize(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(summed (C,H,W), counter (H,W)) on the host."""
+        """(summed (C,H,W), counter (H,W)) on the host: the input of the
+        host ``finalize_mosaic``, for comparing it with ``finish``."""
         summed = self.sum[:, :self.height, :self.width].cpu().numpy()
         counter = self.count[:self.height, :self.width].cpu().numpy()
         return summed, counter
+
+    def finish(self, **mode) -> Tuple[torch.Tensor, Optional[float]]:
+        """(output, nodata) of ``finalize_mosaic_torch`` on the mosaic, on
+        its device; ``mode``: ``regression``, ``all_classes``,
+        ``specific_class``."""
+        from ..predict.merge import finalize_mosaic_torch
+
+        return finalize_mosaic_torch(self.sum, self.count, **mode)
+
+
+class DeviceBand:
+    """Sum + count of the scene rows [top, top + rows) on the device: the
+    mosaic of a scene of any size, one band of rows at a time.
+
+    ``add_batch`` takes scene rows; every window must lie inside the band.
+    ``finalize_rows(upto)`` finalizes the rows [top, upto) on the device,
+    returns them, and moves the rest of the band up so that ``upto`` becomes
+    its top. The move goes into a second buffer and the two swap: PyTorch
+    refuses a copy between overlapping slices of one tensor, and a clone
+    per move would allocate the band anew each time."""
+
+    def __init__(self, rows: int, width: int, n_classes: int, device="cuda",
+                 blend: Optional[Callable] = None):
+        self.device = resolve_device(device)
+        self.rows, self.width, self.n_classes = rows, width, n_classes
+        self.top = 0
+        self._buffers = [
+            (torch.zeros((n_classes, rows, width), dtype=torch.float32, device=self.device),
+             torch.zeros((rows, width), dtype=torch.float32, device=self.device))
+            for _ in range(2)]
+        self.sum, self.count = self._buffers[0]
+        self.blend = blend or _default_blend(self.device)
+
+    def add_batch(self, probs: torch.Tensor, rows, cols) -> None:
+        """probs: (N, C, th, tw) on the band's device; rows (scene rows) and
+        cols host offsets."""
+        if probs.shape[1] != self.n_classes:
+            raise ValueError(f"probs have {probs.shape[1]} classes, band "
+                             f"{self.n_classes}")
+        rows = np.asarray(rows, np.int64) - self.top
+        self.blend(self.sum, self.count, probs.to(torch.float32).contiguous(),
+                   rows, cols)
+
+    def finalize_rows(self, upto: int, **mode) -> Tuple[torch.Tensor, Optional[float]]:
+        """(output, nodata) of ``finalize_mosaic_torch`` on the scene rows
+        [top, upto), on the device; then ``upto`` is the band's top."""
+        from ..predict.merge import finalize_mosaic_torch
+
+        n = upto - self.top
+        if not 0 < n <= self.rows:
+            raise ValueError(f"cannot finalize rows {self.top}..{upto} of a "
+                             f"{self.rows}-row band at row {self.top}")
+        out = finalize_mosaic_torch(self.sum[:, :n], self.count[:n], **mode)
+        i = 1 if self.sum is self._buffers[0][0] else 0
+        nxt_sum, nxt_count = self._buffers[i]
+        keep = self.rows - n
+        nxt_sum[:, :keep].copy_(self.sum[:, n:])
+        nxt_sum[:, keep:].zero_()
+        nxt_count[:keep].copy_(self.count[n:])
+        nxt_count[keep:].zero_()
+        self.sum, self.count = nxt_sum, nxt_count
+        self.top = upto
+        return out

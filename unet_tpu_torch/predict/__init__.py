@@ -1,4 +1,16 @@
-"""Whole-scene serving and tile-set prediction."""
+"""Whole-scene serving (any size) and tile-set prediction."""
 
-from .predict import Predictor, predict_raster, save_predictions, serve_scenes  # noqa: F401
-from .merge import MosaicAccumulator, TileInfo, tile_extent_info  # noqa: F401
+from .predict import (  # noqa: F401
+    Predictor,
+    predict_raster,
+    predict_raster_streamed,
+    save_predictions,
+    serve_scenes,
+)
+from .merge import (  # noqa: F401
+    MosaicAccumulator,
+    TileInfo,
+    finalize_mosaic,
+    finalize_mosaic_torch,
+    tile_extent_info,
+)

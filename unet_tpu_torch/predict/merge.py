@@ -10,7 +10,10 @@ mosaic as they are predicted instead of being held in RAM all at once
 (the reference keeps every tile's probability stack in a list,
 predict.py:220). ``save_predictions(device_merge=True)`` accumulates on
 the card instead (``ops/blend.py`` ``DeviceMosaic``, placed by
-``grid_layout``) and finishes with ``finalize_mosaic``.
+``grid_layout``) and finishes there with ``finalize_mosaic_torch``, the
+same divide / argmax / select on tensors, so only the finished output
+crosses to the host; ``finalize_mosaic`` stays its plain version and the
+host merge's finalize.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..geo import tiff as tiff_codec
 
@@ -92,6 +96,36 @@ def finalize_mosaic(
     else:
         merged = merged[specific_class]
     return merged, nodata
+
+
+def finalize_mosaic_torch(
+    summed: torch.Tensor,
+    counter: torch.Tensor,
+    regression: bool = False,
+    all_classes: bool = False,
+    specific_class: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[float]]:
+    """``finalize_mosaic`` on tensors, on whatever device they lie: a
+    (C, n, W) float32 sum and an (n, W) count give (output, nodata) —
+    (n, W) uint8 class map, (C, n, W) ``all_classes`` or (n, W)
+    ``specific_class`` probabilities, or (n, W) regression values with
+    −9999 where the count is 0.
+
+    Bit for bit ``finalize_mosaic``'s output on the same sums: the divide
+    is IEEE float32 in both, a pixel no window reached keeps its sum (a
+    bare divide would give 0/0 = NaN there, which ``torch.argmax`` takes
+    for the largest value), and ``torch.argmax`` takes the first index on
+    ties, as ``np.argmax`` does."""
+    pos = counter > 0
+    if regression:
+        values = summed[0] if summed.dim() == 3 else summed
+        return torch.where(pos, values / counter, torch.full_like(values, -9999.0)), -9999
+    if specific_class is not None and not all_classes:
+        summed = summed[specific_class]
+    avg = torch.where(pos, summed / counter, summed)
+    if all_classes or specific_class is not None:
+        return avg, None
+    return torch.argmax(avg, dim=0).to(torch.uint8), None
 
 
 class MosaicAccumulator:

@@ -6,13 +6,20 @@ storage dtype on the host; each batch crosses to the device in that dtype
 scaled there, and runs through the U-Net in the compute dtype (bf16 on the
 card).
 
-* ``predict_raster`` (``serve``): sliding windows over one scene, blended
-  into a device-resident mosaic by the ``blend_count`` CUDA kernel; only
-  the finished mosaic comes back to the host.
+* ``predict_raster`` (``serve``): sliding windows over one scene of any
+  size, the overlap sums added on the device by the ``blend_count`` CUDA
+  kernel and finalized there; only the finished output comes back to the
+  host. It picks one of three tiers, as the JAX package does:
+  a whole-scene ``DeviceMosaic`` while the mosaic fits
+  ``device_budget_bytes`` and the card's free memory; else a
+  ``DeviceBand`` of rows that moves down the scene held in RAM
+  (``_serve_banded``); else, past ``host_budget_bytes``,
+  ``predict_raster_streamed``: the same band over windowed reads, the
+  finished rows streamed to the output GeoTIFF, O(band) memory.
 * ``save_predictions`` (``predict``): every tile file of a folder, written
   back as predicted tiles or merged into an overlap-averaged mosaic, on the
   host (``MosaicAccumulator``) or on the card (``device_merge``, the
-  ``blend_count`` kernel).
+  ``blend_count`` kernel, finalized on the card).
 
 Output modes: argmax class map (uint8, default), ``all_classes``
 (float32 stack), ``specific_class`` (float32 band), ``regression``
@@ -27,7 +34,7 @@ import concurrent.futures as cf
 import time
 from collections import deque
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +42,14 @@ import torch
 from ..data.augment import image_scale
 from ..geo import read_raster, tiff, write_raster
 from ..models.layers import pixel_shuffle
-from ..ops.blend import DeviceMosaic
-from ..tiling.windows import generate_windows
+from ..ops.blend import DeviceBand, DeviceMosaic, free_device_bytes, mosaic_bytes
+from ..tiling.windows import Window, generate_windows
 from ..train.checkpoint import load_bundle
 from ..utils.device import resolve_device
 from ..utils.progress import TileProgress
-from .merge import MosaicAccumulator, finalize_mosaic, grid_layout, tile_extent_info
+from .merge import MosaicAccumulator, grid_layout, tile_extent_info
+
+READ_AHEAD = 2  # batches of scene rows read and stacked ahead of the forward
 
 
 def _apply_class_zero(arr: np.ndarray, nodata: Optional[float]) -> np.ndarray:
@@ -106,9 +115,50 @@ def finish_probs(probs: torch.Tensor, folded: bool = False,
     return probs
 
 
+class Spans:
+    """Durations of timed spans of work: on the card a pair of CUDA events
+    around each (device time, read once at the end, no wait in between), on
+    the CPU the host clock."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self._spans: List = []
+        self._t0 = None
+
+    def start(self) -> None:
+        if self.cuda:
+            self._t0 = torch.cuda.Event(enable_timing=True)
+            self._t0.record()
+        else:
+            self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._spans.append((self._t0, end))
+        else:
+            self._spans.append(time.perf_counter() - self._t0)
+
+    def ms(self) -> List[float]:
+        """Milliseconds of every span so far (waits for the card)."""
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+            return [s.elapsed_time(e) for s, e in self._spans]
+        return [t * 1e3 for t in self._spans]
+
+
 class Predictor:
     """Loads a bundle onto ``device`` and predicts batches of equally sized
-    tiles. ``dtype`` is the compute dtype (bf16 on the card)."""
+    tiles. ``dtype`` is the compute dtype (bf16 on the card).
+
+    ``scenes`` holds one record a served scene (``predict_raster``,
+    ``predict_raster_streamed``): the tier taken, windows, batches, the
+    mosaic's adds (``blend_count`` launches on the card), the band's rows
+    and its batches that span two window rows, the finalize's seconds
+    (device time on the card), the host's seconds reading the scene and
+    writing the output, and the scene's seconds."""
 
     def __init__(self, bundle: str, batch_size: int = 16, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, tta: bool = False,
@@ -127,7 +177,8 @@ class Predictor:
         self.batch_size = batch_size
         probs_fn = make_probs_fn(self.model, self.regression)
         self.probs_fn = tta_probs_fn(probs_fn) if self.tta else probs_fn
-        self._timings: List = []  # per forward: CUDA event pair or seconds
+        self._forwards = Spans(self.device)
+        self.scenes: List[dict] = []
 
     @torch.inference_mode()
     def predict_batch_device(self, images: np.ndarray,
@@ -142,19 +193,11 @@ class Predictor:
         # from pinned memory the copy is queued behind earlier work instead
         # of waiting for it, as a pageable copy does
         x = x.pin_memory().to(self.device, non_blocking=True) if cuda else x
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        else:
-            t0 = time.perf_counter()
+        self._forwards.start()
         x = x.permute(0, 3, 1, 2).to(torch.float32) * self.scale
         out = finish_probs(self.probs_fn(x), quantize_int8=quantize_int8,
                            argmax_u8=argmax_u8)
-        if cuda:
-            end.record()
-            self._timings.append((start, end))
-        else:
-            self._timings.append(time.perf_counter() - t0)
+        self._forwards.stop()
         return out
 
     def predict_batch(self, images: np.ndarray) -> np.ndarray:
@@ -164,10 +207,7 @@ class Predictor:
 
     def forward_ms(self) -> List[float]:
         """Milliseconds of every forward so far (device time on CUDA)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            return [s.elapsed_time(e) for s, e in self._timings]
-        return [t * 1e3 for t in self._timings]
+        return self._forwards.ms()
 
 
 def _check_out_compress(out_compress, regression=False, all_classes=False,
@@ -187,6 +227,241 @@ def _check_out_compress(out_compress, regression=False, all_classes=False,
             "'deflate'/'lzw'/'packbits' for those modes")
 
 
+def _fetch(out: torch.Tensor):
+    """Start ``out``'s copy to the host: on the card into pinned memory,
+    queued behind the forward, with an event recorded after it; on the CPU
+    the tensor itself. Returns (host tensor, event or None)."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def band_plan(windows: Sequence[Window], batch_size: int) -> Tuple[List[list], int]:
+    """(batches, band rows) of the banded serve: the windows sorted by
+    (y, x), as the JAX package's streamed path walks them, cut into batches
+    of ``batch_size`` that run on across window rows (only the last batch
+    is short), and the rows a band needs to hold every window of any one
+    batch."""
+    order = sorted(windows, key=lambda win: (win.y, win.x))
+    batches = [order[i:i + batch_size] for i in range(0, len(order), batch_size)]
+    rows = max(b[-1].y + b[-1].h - b[0].y for b in batches)
+    return batches, rows
+
+
+class WindowedRows:
+    """``rows(r0, r1)``: the scene rows [r0, r1) of a GeoTIFF as (rows, W, C)
+    in its storage dtype, read with ``tiff.read_window`` for a caller that
+    walks down the scene (r0 and r1 never decrease). Rows stay on the host
+    until a later call's r0 passes them, each row is decoded once, and
+    decoded segments above the read front are evicted: memory is
+    O(rows held), never the scene."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._cache: dict = {}
+        self._rows = None
+        self._first = 0
+
+    def __call__(self, r0: int, r1: int) -> np.ndarray:
+        end = self._first + (0 if self._rows is None else len(self._rows))
+        if self._rows is None or r0 >= end:
+            chw, _ = tiff.read_window(self.path, r0, r1, _cache=self._cache)
+            self._rows, self._first = np.moveaxis(chw, 0, 2), r0
+        elif r1 > end:
+            chw, _ = tiff.read_window(self.path, end, r1, _cache=self._cache)
+            self._rows = np.concatenate([self._rows[r0 - self._first:],
+                                         np.moveaxis(chw, 0, 2)])
+            self._first = r0
+        tiff.evict_decoded_rows(self._cache, r1)
+        return self._rows[r0 - self._first:r1 - self._first]
+
+    def close(self) -> None:
+        f = self._cache.get("f")
+        if f is not None:
+            f.close()
+
+
+def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
+                  patch_overlap: float, read_rows: Callable, emit: Callable,
+                  mode: dict, record: dict) -> Optional[float]:
+    """The banded serve, shared by the in-RAM and the streamed tier.
+
+    Windows in (y, x) order go through the model in batches of
+    ``predictor.batch_size`` (``band_plan``) and are added into a
+    ``DeviceBand`` (the ``blend_count`` kernel on the card), one add for
+    each window row of a batch: a batch that wraps from one window row to
+    the next would give the kernel a bounding box as wide as the scene, and
+    at 20000² on an H100 that one launch takes 2.3× a batch within a row
+    while the two parts together take less than one (PERF.md §6); the adds
+    keep the tiles' order, so the sums are the same. After each
+    batch the rows above the next window not yet added are final: they are
+    finalized on the device, copied to pinned host memory behind an event,
+    and handed to ``emit`` as a numpy array ((n, W), or (C, n, W) for
+    ``all_classes``) once the next finalize is queued. ``read_rows(r0, r1)``
+    gives scene rows as (rows, W, C); a thread calls it and stacks each
+    batch ``READ_AHEAD`` batches ahead of the forward. Fills ``record``;
+    returns the output's nodata."""
+    windows = generate_windows(height, width, patch, patch_overlap)
+    bs = predictor.batch_size
+    batches, band_rows = band_plan(windows, bs)
+    record.update(windows=len(windows), batches=len(batches), band_rows=band_rows,
+                  wrapping_batches=sum(b[0].y != b[-1].y for b in batches),
+                  adds=sum(len({win.y for win in b}) for b in batches))
+    n_out = int(predictor.manifest.get("n_out", 2))
+    band = DeviceBand(band_rows, width, n_out, device=predictor.device)
+
+    def load(chunk):
+        r0 = chunk[0].y
+        rows = read_rows(r0, chunk[-1].y + chunk[-1].h)
+        batch = np.stack([rows[win.y - r0:win.y - r0 + win.h, win.x:win.x + win.w]
+                          for win in chunk])
+        if len(chunk) < bs:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), 0)])
+        return batch
+
+    finalize = Spans(predictor.device)
+    pending: deque = deque()  # (host tensor, event) of finalized rows
+
+    def drain(keep: int) -> None:
+        while len(pending) > keep:
+            host, event = pending.popleft()
+            if event is not None:
+                event.synchronize()
+            emit(host.numpy())
+
+    nodata = None
+    with cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="rows") as pool:
+        reads = deque(pool.submit(load, b) for b in batches[:READ_AHEAD])
+        for k, chunk in enumerate(batches):
+            batch = reads.popleft().result()
+            if k + READ_AHEAD < len(batches):
+                reads.append(pool.submit(load, batches[k + READ_AHEAD]))
+            probs = predictor.predict_batch_device(batch)[:len(chunk)]
+            start = 0
+            for end in range(1, len(chunk) + 1):
+                if end == len(chunk) or chunk[end].y != chunk[start].y:
+                    band.add_batch(probs[start:end], [chunk[start].y] * (end - start),
+                                   [win.x for win in chunk[start:end]])
+                    start = end
+            upto = batches[k + 1][0].y if k + 1 < len(batches) else height
+            if upto > band.top:
+                finalize.start()
+                out, nodata = band.finalize_rows(upto, **mode)
+                pending.append(_fetch(out))
+                finalize.stop()
+                drain(1)
+        drain(0)
+    record["finalize_s"] = sum(finalize.ms()) / 1e3
+    return nodata
+
+
+def _serve_full(predictor: Predictor, hwc: np.ndarray, patch: int,
+                patch_overlap: float, mode: dict, record: dict):
+    """The whole-scene tier: windows in ``generate_windows``' order, in
+    batches of ``predictor.batch_size`` (the last padded by repeating its
+    final window), into one ``DeviceMosaic``, finalized on the device.
+    Returns (output, nodata) on the host."""
+    h, w = hwc.shape[:2]
+    windows = generate_windows(h, w, patch, patch_overlap)
+    bs = predictor.batch_size
+    n_batches = -(-len(windows) // bs)
+    record.update(windows=len(windows), batches=n_batches, adds=n_batches)
+    n_out = int(predictor.manifest.get("n_out", 2))
+    mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
+    for start in range(0, len(windows), bs):
+        chunk = windows[start:start + bs]
+        batch = np.stack([hwc[win.indices()] for win in chunk])
+        if len(chunk) < bs:
+            batch = np.concatenate(
+                [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
+        probs = predictor.predict_batch_device(batch)[:len(chunk)]
+        mosaic.add_batch(probs, [win.y for win in chunk], [win.x for win in chunk])
+    finalize = Spans(predictor.device)
+    finalize.start()
+    out, nodata = mosaic.finish(**mode)
+    host, event = _fetch(out)
+    finalize.stop()
+    if event is not None:
+        event.synchronize()
+    record["finalize_s"] = sum(finalize.ms()) / 1e3
+    return host.numpy(), nodata
+
+
+def predict_raster_streamed(
+    predict_model: str,
+    raster_path: str,
+    output_path: str,
+    patch_size: Optional[int] = None,
+    patch_overlap: float = 0.2,
+    batch_size: int = 16,
+    regression: bool = False,
+    all_classes: bool = False,
+    specific_class: Optional[int] = None,
+    class_zero: bool = False,
+    spatial: int = 1,
+    tta: bool = False,
+    predictor: Optional[Predictor] = None,
+    out_compress: Optional[str] = None,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> str:
+    """Whole-scene prediction at any size in O(band) memory.
+
+    Neither the scene nor the mosaic is ever held whole: scene rows are
+    read in windows (``tiff.read_window``, on a thread ahead of the
+    forward), the overlap sums accumulate on the device in a band of rows
+    (``DeviceBand``, the ``blend_count`` kernel on the card) that is
+    finalized there, and the finished rows stream to the output GeoTIFF
+    (``tiff.StripStreamWriter``: data first, IFD at close). Returns
+    ``output_path``."""
+    if int(spatial) > 1:
+        raise NotImplementedError("spatial partitioning: not yet ported")
+    _check_out_compress(out_compress, regression, all_classes, specific_class)
+    if predictor is None:
+        predictor = Predictor(predict_model, batch_size=batch_size, device=device,
+                              dtype=dtype, tta=tta)
+    regression = predictor.regression or regression
+    info = tiff.read_info(raster_path)
+    patch = int(patch_size or predictor.manifest.get("patch_size", 400))
+    n_out = int(predictor.manifest.get("n_out", 2))
+    if regression or all_classes:
+        out_bands, out_dtype, nodata = (n_out if all_classes else 1), np.float32, -9999.0
+    elif specific_class is not None:
+        out_bands, out_dtype, nodata = 1, np.float32, None
+    else:
+        out_bands, out_dtype, nodata = 1, np.uint8, None
+
+    def emit(out: np.ndarray) -> None:
+        t1 = time.perf_counter()
+        if out.ndim == 2:
+            out = out[None]
+        if class_zero:
+            out = _apply_class_zero(out, nodata)
+        writer.append_rows(out.astype(out_dtype, copy=False))
+        record["write_s"] += time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    record = {"raster": str(raster_path), "tier": "streamed", "write_s": 0.0}
+    predictor.scenes.append(record)
+    rows = WindowedRows(str(raster_path))
+    try:
+        with tiff.StripStreamWriter(
+                str(output_path), info.height, info.width, out_bands, out_dtype,
+                transform=info.transform, crs=info.crs, nodata=nodata,
+                compress=out_compress) as writer:
+            _serve_banded(predictor, info.height, info.width, patch, patch_overlap,
+                          rows, emit, dict(regression=regression, all_classes=all_classes,
+                                           specific_class=specific_class), record)
+    finally:
+        rows.close()
+    record["seconds"] = time.perf_counter() - t0
+    return str(output_path)
+
+
 def predict_raster(
     predict_model: str,
     raster_path: str,
@@ -200,16 +475,26 @@ def predict_raster(
     class_zero: bool = False,
     spatial: int = 1,
     tta: bool = False,
+    device_budget_bytes: int = 4 << 30,
     host_budget_bytes: int = 16 << 30,
     predictor: Optional[Predictor] = None,
     out_compress: Optional[str] = None,
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
 ):
-    """Serve a whole GeoTIFF: sliding windows in batches of ``batch_size``
-    (the last one padded by repeating its final window), blended into a
-    device mosaic. A mosaic larger than the card's free memory raises
-    ``NotImplementedError`` (the banded on-card path is not ported yet).
+    """Serve a whole GeoTIFF of any size: sliding windows, batched through
+    the model, their overlap sums added and finalized on the device.
+
+    The tier follows the scene, as in the JAX package:
+
+    * the mosaic (``mosaic_bytes``) fits ``device_budget_bytes`` and the
+      card's free memory: one ``DeviceMosaic`` (``_serve_full``);
+    * else the scene is read into RAM and served through a band of rows on
+      the device (``_serve_banded``) into an output array;
+    * scene plus mosaic past ``host_budget_bytes``: the streamed path
+      (``predict_raster_streamed``); it needs ``output_path``
+      (``ValueError`` otherwise) and returns ``(None, transform, crs)``.
+
     Returns (array, transform, crs) and writes a georeferenced GeoTIFF when
     ``output_path`` is given."""
     device = resolve_device(device)
@@ -225,45 +510,72 @@ def predict_raster(
     stream_bytes = info0.height * info0.width * (n_out + 1) * 4 \
         + info0.height * info0.width * info0.bands * info0.dtype.itemsize
     if stream_bytes > host_budget_bytes:
-        # the O(band)-memory streamed path comes with a later slice
-        raise NotImplementedError(
-            f"scene needs {stream_bytes / 1e9:.1f} GB in RAM; "
-            "predict_raster_streamed is not yet ported")
+        if output_path is None:
+            raise ValueError(
+                f"Scene needs {stream_bytes/1e9:.1f} GB in RAM; pass output_path "
+                "to use the streamed whole-scene path")
+        print(f"Scene+mosaic would need {stream_bytes/1e9:.1f} GB — streaming.")
+        predict_raster_streamed(
+            predict_model, raster_path, output_path, patch_size=patch_size,
+            patch_overlap=patch_overlap, batch_size=batch_size,
+            regression=regression, all_classes=all_classes,
+            specific_class=specific_class, class_zero=class_zero,
+            predictor=predictor, out_compress=out_compress)
+        # not read back: the point is that the mosaic exceeds RAM; callers
+        # stream it from the written file
+        return None, info0.transform, info0.crs
 
+    t0 = time.perf_counter()
     scene = read_raster(raster_path)
+    read_s = time.perf_counter() - t0
     hwc = np.moveaxis(scene.data, 0, 2)  # view, native dtype
     h, w = hwc.shape[:2]
     patch = int(patch_size or predictor.manifest.get("patch_size", 400))
-    windows = generate_windows(h, w, patch, patch_overlap)
+    mode = dict(regression=regression, all_classes=all_classes,
+                specific_class=specific_class)
+    budget = device_budget_bytes
+    if predictor.device.type == "cuda":
+        budget = min(budget, free_device_bytes(predictor.device))
+    record = {"raster": str(raster_path), "read_s": read_s}
+    predictor.scenes.append(record)
+    nbytes = mosaic_bytes(h, w, n_out)
+    if nbytes <= budget:
+        record["tier"] = "full"
+        out, nodata = _serve_full(predictor, hwc, patch, patch_overlap, mode, record)
+    else:
+        print(f"Mosaic needs {nbytes/1e9:.1f} GB — accumulating in a band of rows "
+              "on the device.")
+        record["tier"] = "banded"
+        out = None
+        done = 0
 
-    mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
-    bs = predictor.batch_size
-    for start in range(0, len(windows), bs):
-        chunk = windows[start:start + bs]
-        batch = np.stack([hwc[win.indices()] for win in chunk])
-        if len(chunk) < bs:
-            batch = np.concatenate(
-                [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
-        probs = predictor.predict_batch_device(batch)[:len(chunk)]
-        mosaic.add_batch(probs, [win.y for win in chunk], [win.x for win in chunk])
+        def emit(rows: np.ndarray) -> None:
+            nonlocal out, done
+            if out is None:
+                out = np.empty(rows.shape[:-2] + (h, w), rows.dtype)
+            out[..., done:done + rows.shape[-2], :] = rows
+            done += rows.shape[-2]
 
-    summed, counter = mosaic.finalize()
-    out, nodata = finalize_mosaic(summed, counter, regression=regression,
-                                  all_classes=all_classes,
-                                  specific_class=specific_class)
+        nodata = _serve_banded(predictor, h, w, patch, patch_overlap,
+                               lambda r0, r1: hwc[r0:r1], emit, mode, record)
     if class_zero:
         out = _apply_class_zero(out, nodata)
+    t1 = time.perf_counter()
     if output_path is not None:
-        write_raster(output_path, np.asarray(out), transform=scene.transform,
+        write_raster(output_path, out, transform=scene.transform,
                      crs=scene.crs, nodata=nodata, compress=out_compress)
-    return np.asarray(out), scene.transform, scene.crs
+    record["write_s"] = time.perf_counter() - t1
+    record["seconds"] = time.perf_counter() - t0
+    return out, scene.transform, scene.crs
 
 
 def serve_scenes(predict_model: str, raster_paths, output_dir: str,
                  suffix: str = "_prediction.tif", device="cuda",
                  dtype: torch.dtype = torch.bfloat16, **kwargs) -> list:
     """Serve several scenes through ONE resident model; outputs are
-    ``output_dir/<stem><suffix>``. Returns the output paths."""
+    ``output_dir/<stem><suffix>``. Each scene goes through
+    ``predict_raster`` and takes its own tier (``device_budget_bytes``,
+    ``host_budget_bytes`` pass through). Returns the output paths."""
     device = resolve_device(device)
     out_dir = Path(output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -279,19 +591,6 @@ def serve_scenes(predict_model: str, raster_paths, output_dir: str,
         outs.append(out)
         print(f"Served {rp} -> {out}")
     return outs
-
-
-def _fetch(out: torch.Tensor):
-    """Start ``out``'s copy to the host: on the card into pinned memory,
-    queued behind the forward, with an event recorded after it; on the CPU
-    the tensor itself. Returns (host tensor, event or None)."""
-    if out.device.type != "cuda":
-        return out, None
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
 
 
 def save_predictions(
@@ -324,8 +623,10 @@ def save_predictions(
     Tiles are grouped by shape and batched within a group; a group's last
     batch is padded by repeating its final tile. ``device_merge=True``
     accumulates the mosaic on the device (the ``blend_count`` kernel on the
-    card) in float32, so ``large_file`` quantization happens once at the
-    end rather than per tile. ``predictor`` reuses a resident
+    card) in float32 and finalizes it there (``DeviceMosaic.finish``), so
+    ``large_file`` quantization happens once at the end rather than per
+    tile; a mosaic larger than the card's free memory raises
+    ``RuntimeError``. ``predictor`` reuses a resident
     :class:`Predictor`.
 
     The three stages overlap: tile reads run on two threads, and on the
@@ -486,10 +787,13 @@ def save_predictions(
     if not merge:
         return output_folder
     if device_mosaic is not None:
-        summed, counter = device_mosaic.finalize()
-        mosaic, nodata = finalize_mosaic(summed, counter, regression=regression,
-                                         all_classes=all_classes,
-                                         specific_class=specific_class)
+        # finalized on the device; only the finished mosaic crosses
+        out, nodata = device_mosaic.finish(regression=regression, all_classes=all_classes,
+                                           specific_class=specific_class)
+        host, event = _fetch(out)
+        if event is not None:
+            event.synchronize()
+        mosaic = host.numpy()
         if large_file and not regression and (all_classes or sc_selected) \
                 and np.max(mosaic) <= 1:
             mosaic = np.around(mosaic * ((128 / 4) - 1)).astype(np.int8)
