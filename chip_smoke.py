@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits nonzero), in this order:
-  1. the card: nvidia-smi name and power limit, torch and CUDA versions;
+  1. the card: nvidia-smi name and power limit, torch and CUDA versions,
+     and whether matplotlib and pandas import there;
   2. build every CUDA kernel and the native tile decoder from the repo
      sources (one nvcc for each kernel source and one g++, all started
      together, cold);
@@ -95,6 +96,29 @@ Phases (any failure raises and the script exits nonzero), in this order:
      time, the per-step launches and a kernel step against a plain step
      (the bars of 8), and the self-attention and the full-resolution tail
      timed alone;
+     8c. the training surface on the flagship at 16 × 512², bf16: (a) every
+     augmentation op at p = 0.5 on a uint8 batch and on an int16 one under
+     reference_quirks with n_transform_imgs 0.5, the kernel path bit-equal
+     to the same draws through the plain flip_scale, one launch a batch,
+     µs a batch and the plain passes' share; (b) grad_accum 1, 2 and 4
+     with that augmentation: 43 × grad_accum launches of each bn_stats
+     kernel a step and one flip_scale, a kernel step against a plain step
+     (the bars of 8), step ms and peak card memory; (d) fit with the LR
+     finder (a short sweep) starts from the seed's weights bit for bit;
+     (e) a fastai-named xresnet34 .pth (seed 7) through the CLI's
+     ``import-weights`` (in process) to an .npz, each grafted in both
+     topologies bit-equal to the source (tpu_opt's folded stem keeps its
+     init), a step each; (f) ``existing_model`` on phase 4's bundle from a
+     parity config adopts tpu_opt and starts from its weights bit for
+     bit; (g) dice (bf16 printed; float32 held), MSE, L1 and smooth L1
+     kernel steps against plain steps in float32 with TF32 off, on a
+     continuous target (the tiles' band mean over 15 × 15 ÷ 255); (c) and
+     (d) ``python -m unet_tpu_torch train --regression --lr-finder
+     valley`` for 1 epoch on that target (the sweep's steps launch the
+     kernels too; rmse and r2_score finite; the LR CSV written) and its
+     bundle served over the 4096² scene (7 blend_count launches, float32,
+     no nodata, the finalize on the card bit-equal to the host's); the
+     phase's seconds;
   9. bf16 vs float32 class maps on one batch of 16 tiles (>= 99% agree);
      9b. the reference pipeline at full width: the scene's labels written
      as a mask GeoTIFF; ``python -m unet_tpu_torch tile`` cuts the scene
@@ -142,6 +166,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import importlib
 import importlib.util
 import json
 import os
@@ -195,6 +220,13 @@ PIPE_EPOCHS = 1       # the pipeline's focal training: 1 epoch of the tiled scen
 PIPE_STEPS = 3        # in-process focal steps before its kernel-vs-plain step
 AGREE = 0.9999        # the pipeline's mosaics: host merge, device merge, serve
 BIG = 20000           # any-size serve: a 4 km x 4 km sheet at 20 cm, 49 x 49 windows
+# phase 8c, the training surface: every augmentation op at p = 0.5 beside the flips
+SURFACE_AUG = dict(rot90_p=0.5, brightness_contrast_p=0.5, saturation_p=0.5,
+                   coarse_dropout_p=0.5)
+GRAD_ACCUMS = (1, 2, 4)
+SURFACE_STEPS = 3     # timed steps at each grad_accum
+SWEEP_CHECK_ITERS = 12  # the in-process sweep before the fresh-weights check
+PRETRAINED_SEED = 7   # the torch xresnet34 whose .pth is grafted
 # the quality gate of tests/test_quality_parity.py, field for field
 GATE_SIZE, GATE_TILE = 384, 128
 GATE_TRANSFORM = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
@@ -743,7 +775,10 @@ def flip_phase(dev, late: list) -> dict:
 def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
                     epochs: int = TRAIN_EPOCHS, flags: tuple = ()) -> dict:
     """``python -m unet_tpu_torch train [flags]`` in a subprocess (launch
-    counts start at 0 there and come back in the stats file)."""
+    counts start at 0 there and come back in the stats file); with
+    ``--regression`` the history holds rmse and r2_score, with
+    ``--lr-finder`` the sweep's steps launch the kernels too and its CSV
+    is in the bundle."""
     stats_path = tmp / f"{description}_stats.json"
     cmd = [sys.executable, "-m", "unet_tpu_torch", "train", str(tiles),
            "--model-path", str(tmp / "models"), "--description", description,
@@ -760,17 +795,23 @@ def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
     st = json.loads(stats_path.read_text())
     steps = epochs * (64 // BATCH)
     evals = epochs * -(-16 // BATCH)
-    want = {"bn_sum_sumsq": 43 * steps, "bn_bwd_sums": 43 * steps,
-            "flip_scale": steps + evals}
+    sweep = st["lr_find"]["steps"] if st["lr_find"] else 0
+    want = {"bn_sum_sumsq": 43 * (steps + sweep), "bn_bwd_sums": 43 * (steps + sweep),
+            "flip_scale": steps + evals + sweep}
     if st["steps"] != steps or st["launches"] != want:
         raise AssertionError(f"train ran {st['steps']} steps, launches {st['launches']}, "
                              f"expected {steps} and {want}")
+    metrics = ("rmse", "r2_score") if "--regression" in flags else ("dice_multi",)
     for row in st["history"]:
-        if not all(np.isfinite([row["train_loss"], row["valid_loss"], row["dice_multi"]])):
+        if not all(np.isfinite([row["train_loss"], row["valid_loss"],
+                                *(row[m] for m in metrics)])):
             raise AssertionError(f"non-finite history row {row}")
     bundle = tmp / "models" / description
-    for name in (f"{description}.json", f"{description}.msgpack", "best-model.msgpack",
-                 f"{description}_history.csv"):
+    names = [f"{description}.json", f"{description}.msgpack", "best-model.msgpack",
+             f"{description}_history.csv", f"{description}_profile.txt"]
+    if sweep:
+        names.append(f"{description}_lr_find.csv")
+    for name in names:
         if not (bundle / name).is_file():
             raise AssertionError(f"bundle lacks {name}")
     ms = st["step_ms"]
@@ -778,9 +819,11 @@ def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
           f"({wall:.1f} s with process start); step {float(np.median(ms[1:])):.1f} ms "
           f"median after the first ({ms[0]:.1f} ms); history "
           + "; ".join(f"epoch {r['epoch']}: train {r['train_loss']:.4f} valid "
-                      f"{r['valid_loss']:.4f} dice {r['dice_multi']:.4f}"
+                      f"{r['valid_loss']:.4f} " + " ".join(f"{m} {r[m]:.4f}" for m in metrics)
                       for r in st["history"])
-          + f"; launches {st['launches']}")
+          + f"; launches {st['launches']}; peak card memory "
+          + ("not measured" if st["peak_device_bytes"] is None
+             else f"{st['peak_device_bytes'] / 2**30:.2f} GiB"))
     loader = st["loader"]
     if loader["path"] not in ("native", "python"):
         raise AssertionError(f"train loader reports path {loader['path']}")
@@ -788,6 +831,64 @@ def train_cli_phase(tmp: Path, tiles: Path, description: str = "trained",
           + ", ".join(f"{k} {'not timed' if v is None else f'{v:.1f} ms'}"
                       for k, v in loader["first_batch_ms"].items()))
     return {"bundle": bundle, "launches": st["launches"], "stats": st}
+
+
+def step_check(trainer, host_batch: tuple, what: str, hold: bool = True) -> tuple:
+    """One step with the kernels against one with their plain versions
+    (plain bn_stats and plain flip_scale) from the same state, batch and
+    augmentation draws, at the trainer's ``grad_accum``: the two batches
+    bit-equal, the loss within 1e-3 relative, each parameter's gradient
+    within GRAD_REL_L2 relative L2 against at least GRAD_FLOOR of the RMS of
+    all gradients (``hold=False``: printed, not held). The state is
+    restored after; returns (loss relative error, worst gradient error)."""
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import aug, bn
+
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    dev_batch = trainer.to_device(*host_batch)
+    x, y = trainer.augment(*dev_batch, "train", torch.Generator().manual_seed(5))
+    xp, yp = trainer.augment(*dev_batch, "train", torch.Generator().manual_seed(5),
+                             flip_scale=aug.fused_flip_scale_reference)
+    if not (torch.equal(x, xp) and torch.equal(y, yp)):
+        raise AssertionError(f"{what}: the flip_scale batch differs from its plain version")
+    loss_k = trainer.loss_and_grads(x, y).item()
+    grads_k = [p.grad.clone() for p in trainer.model.parameters()]
+    trainer.model.load_state_dict(state)
+    bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.reductions = bn.PLAIN_REDUCTIONS
+    before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+    try:
+        loss_p = trainer.loss_and_grads(xp, yp).item()
+    finally:
+        for m in bns:
+            m.reductions = bn.KERNEL_REDUCTIONS
+    if (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches) != before:
+        raise AssertionError(f"{what}: the plain step launched a bn_stats kernel")
+    # per tensor: RMS error over max(RMS gradient, GRAD_FLOOR × the RMS of
+    # all gradients) — some gradients are 0 in exact arithmetic (a
+    # BatchNorm scale ahead of another BatchNorm, at zero bias), and
+    # there only bf16 rounding noise is left to compare
+    named = list(trainer.model.named_parameters())
+    sq = sum(float(p.grad.float().pow(2).sum()) for _, p in named)
+    g_rms = (sq / sum(p.numel() for _, p in named)) ** 0.5
+    rel = []
+    for (name, p), gk in zip(named, grads_k):
+        rms_p = float(p.grad.norm()) / p.numel() ** 0.5
+        err = float((gk - p.grad).norm()) / p.numel() ** 0.5
+        rel.append((err / max(rms_p, GRAD_FLOOR * g_rms), name))
+    worst = max(rel)
+    diff = sum(float((gk - p.grad).pow(2).sum()) for (_, p), gk in zip(named, grads_k))
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{what} kernel step vs plain step: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{loss_rel:.2e}); all gradients' relative L2 error {(diff / sq) ** 0.5:.2e}; "
+          f"per tensor median {float(np.median([r for r, _ in rel])):.2e}, worst "
+          f"{worst[0]:.2e} ({worst[1]}) over {len(rel)} tensors (floor "
+          f"{GRAD_FLOOR} of the RMS)")
+    trainer.model.load_state_dict(state)
+    if hold and (loss_rel > 1e-3 or worst[0] > GRAD_REL_L2):
+        raise AssertionError(f"{what}: kernel step and plain step disagree")
+    return loss_rel, worst[0]
 
 
 def train_inprocess_phase(tiles: Path, tmp: Path, steps: int = TRAIN_STEPS,
@@ -798,7 +899,7 @@ def train_inprocess_phase(tiles: Path, tmp: Path, steps: int = TRAIN_STEPS,
     SA_GAMMA after the init, so the attention takes part in the step);
     ``cfg`` sets more ``TrainerConfig`` fields (the pipeline's weighted
     focal loss)."""
-    from unet_tpu_torch.models.layers import BatchNorm, SelfAttention
+    from unet_tpu_torch.models.layers import SelfAttention
     from unet_tpu_torch.ops import aug, bn
     from unet_tpu_torch.train.loop import Trainer, TrainerConfig
 
@@ -837,51 +938,9 @@ def train_inprocess_phase(tiles: Path, tmp: Path, steps: int = TRAIN_STEPS,
               f"bn_sum_sumsq/bn_bwd_sums/flip_scale {per_step[-1]}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
-        # the kernels against their plain versions, one step from one state
-        state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
-        dev_batch = trainer.to_device(*host[0])
-        x, y = trainer.augment(*dev_batch, "train", torch.Generator().manual_seed(5))
-        xp, yp = trainer.augment(*dev_batch, "train", torch.Generator().manual_seed(5),
-                                 flip_scale=aug.fused_flip_scale_reference)
-        if not (torch.equal(x, xp) and torch.equal(y, yp)):
-            raise AssertionError("flip_scale batch differs from its plain version")
-        loss_k = trainer.loss_and_grads(x, y).item()
-        grads_k = [p.grad.clone() for p in trainer.model.parameters()]
-        trainer.model.load_state_dict(state)
-        bns = [m for m in trainer.model.modules() if isinstance(m, BatchNorm)]
-        for m in bns:
-            m.reductions = bn.PLAIN_REDUCTIONS
-        before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
-        loss_p = trainer.loss_and_grads(xp, yp).item()
-        if (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches) != before:
-            raise AssertionError("the plain step launched a bn_stats kernel")
-        for m in bns:
-            m.reductions = bn.KERNEL_REDUCTIONS
-        # per tensor: RMS error over max(RMS gradient, GRAD_FLOOR × the RMS of
-        # all gradients) — some gradients are 0 in exact arithmetic (a
-        # BatchNorm scale ahead of another BatchNorm, at zero bias), and
-        # there only bf16 rounding noise is left to compare
-        named = list(trainer.model.named_parameters())
-        sq = sum(float(p.grad.float().pow(2).sum()) for _, p in named)
-        g_rms = (sq / sum(p.numel() for _, p in named)) ** 0.5
-        rel = []
-        for (name, p), gk in zip(named, grads_k):
-            rms_p = float(p.grad.norm()) / p.numel() ** 0.5
-            err = float((gk - p.grad).norm()) / p.numel() ** 0.5
-            rel.append((err / max(rms_p, GRAD_FLOOR * g_rms), name))
-        worst = max(rel)
-        diff = sum(float((gk - p.grad).pow(2).sum()) for (_, p), gk in zip(named, grads_k))
-        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-        print(f"{what} kernel step vs plain step: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
-              f"{loss_rel:.2e}); all gradients' relative L2 error {(diff / sq) ** 0.5:.2e}; "
-              f"per tensor median {float(np.median([r for r, _ in rel])):.2e}, worst "
-              f"{worst[0]:.2e} ({worst[1]}) over {len(rel)} tensors (floor "
-              f"{GRAD_FLOOR} of the RMS)")
-        if loss_rel > 1e-3 or worst[0] > GRAD_REL_L2:
-            raise AssertionError("kernel step and plain step disagree")
-        trainer.model.load_state_dict(state)
+        loss_rel, worst = step_check(trainer, host[0], what)
         return {"trainer": trainer, "host": host, "step_ms": step_ms, "loss_rel": loss_rel,
-                "grad_worst": worst[0], "launches": per_step[-1]}
+                "grad_worst": worst, "launches": per_step[-1]}
     except BaseException:
         trainer.close()
         raise
@@ -1849,6 +1908,468 @@ def gate_phase(tmp: Path) -> dict:
     return {"runs": results, "tf32": bool(torch.backends.cudnn.allow_tf32)}
 
 
+def surface_trainer(tiles: Path, tmp: Path, **cfg):
+    """A Trainer of the flagship (xresnet34 tpu_opt, batch 16, bf16) on
+    ``tiles``, with ``cfg`` overriding TrainerConfig fields."""
+    from unet_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    kw = dict(data_path=tiles, model_path=tmp / "surface", description="surface",
+              codes=("background", "building", "vegetation"), arch="xresnet34",
+              batch_size=BATCH, epochs=1, lr=1e-3, seed=SEED)
+    kw.update(cfg)
+    return Trainer(TrainerConfig(**kw))
+
+
+def surface_augment(dev, tiles: Path) -> dict:
+    """(a) Every op of the full config on a 16 × 3 × 512² uint8 batch of
+    the tile set, and on an int16 3-band batch under reference_quirks
+    with n_transform_imgs 0.5 (half the batch augmented, at the
+    reference's 255/65535 scale): the kernel path bit-equal to the same
+    draws through the plain flip_scale, one flip_scale launch a batch;
+    µs a batch (CUDA events) and the share of the plain passes (rot90,
+    photometric and dropout) in it."""
+    from unet_tpu_torch.data import TileDataset, TileLoader
+    from unet_tpu_torch.data import augment as A
+    from unet_tpu_torch.ops.aug import fused_flip_scale, fused_flip_scale_reference
+
+    cfg = A.AugmentConfig(**SURFACE_AUG)
+    ds = TileDataset(tiles)
+    loader = TileLoader(ds, ds.train_files[:BATCH], BATCH)
+    try:
+        img, msk, _ = next(iter(loader))
+    finally:
+        loader.close()
+    u8, m8 = torch.from_numpy(img).to(dev), torch.from_numpy(msk).to(dev)
+    cases = [("uint8, full config", u8, "int8", False, 1.0),
+             ("int16 3-band, reference_quirks, n_transform_imgs 0.5",
+              u8.to(torch.int16) * 100 + 17, "int16", True, 0.5)]
+    out = {}
+    for i, (what, x, dtype_str, quirks, frac) in enumerate(cases):
+        b, _, h, w = x.shape
+        n_aug = A.n_augmented(b, frac, quirks)
+        draws = A.draw_augment(b, h, w, cfg, n_aug, torch.Generator().manual_seed(SEED + 20 + i))
+        used = {"flips": bool((draws.hflip | draws.vflip).any()),
+                "rot90": bool(draws.rot_k.any()), "brightness_contrast": bool(draws.bc.any()),
+                "saturation": bool(draws.sat.any()), "dropout": bool(draws.drop.any())}
+        if not all(used.values()):
+            raise AssertionError(f"augment {what}: the draws leave an op unused: {used}")
+        scales = A.sample_scales(b, n_aug, dtype_str, "reference", quirks)
+        max_val = A.value_max(dtype_str)
+
+        def run(flip_scale=fused_flip_scale):
+            return A.apply_augment(x, m8, draws, scales, cfg, max_val, flip_scale)
+
+        fused_flip_scale.launches = 0
+        xk, mk = run()
+        launches = fused_flip_scale.launches
+        xp, mp = run(fused_flip_scale_reference)
+        torch.cuda.synchronize()
+        if launches != 1:
+            raise AssertionError(f"augment {what}: {launches} flip_scale launches, expected 1")
+        if not (torch.equal(xk, xp) and torch.equal(mk, mp)):
+            raise AssertionError(f"augment {what}: the kernel path differs from the plain "
+                                 f"one: max {(xk - xp).abs().max().item()}")
+        full_us = cuda_ms(run) * 1e3
+        xr, mr = A.rot90_pass(x, m8, draws.rot_k)
+        rot_us = cuda_ms(lambda: A.rot90_pass(x, m8, draws.rot_k)) * 1e3
+        flip_us = cuda_ms(lambda: fused_flip_scale(xr, mr, draws.hflip, draws.vflip,
+                                                   scales)) * 1e3
+        xf, _ = fused_flip_scale(xr, mr, draws.hflip, draws.vflip, scales)
+        photo_us = cuda_ms(lambda: A.photometric_pass(xf, draws, cfg, max_val)) * 1e3
+        share = (rot_us + photo_us) / full_us
+        out[what] = {"us": full_us, "rot90_us": rot_us, "flip_scale_us": flip_us,
+                     "photometric_us": photo_us, "plain_share": share,
+                     "launches": launches, "n_aug": n_aug,
+                     "scales": sorted(set(scales.tolist()))}
+        print(f"augment {what}: {b}x{x.shape[1]}x{h}x{w} {x.dtype}, {n_aug} samples "
+              f"augmented, scales {out[what]['scales']}; kernel path bit-equal to the plain "
+              f"flip_scale; 1 flip_scale launch; {full_us:.1f} us a batch (CUDA events): "
+              f"rot90 {rot_us:.1f} us, flip_scale {flip_us:.1f} us, photometric and "
+              f"dropout {photo_us:.1f} us; plain passes {100 * share:.1f}% of the batch")
+    return out
+
+
+def surface_grad_accum(trainer) -> dict:
+    """(b) grad_accum 1, 2 and 4 on one trainer with the full augmentation:
+    bn_sum_sumsq and bn_bwd_sums launched 43 × grad_accum times a step
+    and flip_scale once; the step ms (CUDA events, median after the first)
+    and the peak card memory, whole and above what was held before the
+    steps (the weights, Adam's moments and earlier phases' state); a kernel
+    step against a plain step."""
+    from dataclasses import replace
+
+    from unet_tpu_torch.ops import aug, bn
+
+    counters = (bn.bn_sum_sumsq, bn.bn_bwd_sums, aug.fused_flip_scale)
+    host = [b[:2] for b in trainer.train_loader]
+    out = {}
+    for k in GRAD_ACCUMS:
+        trainer.cfg = replace(trainer.cfg, grad_accum=k)
+        trainer.init_state()
+        trainer._step_times.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the weights, Adam and earlier phases' state
+        per_step = []
+        for i in range(SURFACE_STEPS):
+            for f in counters:
+                f.launches = 0
+            trainer.train_step(*host[i % len(host)])
+            per_step.append(tuple(f.launches for f in counters))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        want = (43 * k, 43 * k, 1)
+        if any(c != want for c in per_step):
+            raise AssertionError(f"grad_accum {k}: per-step launches {per_step}, "
+                                 f"expected {want}")
+        ms = trainer.step_ms()
+        loss_rel, worst = step_check(trainer, host[0], f"grad_accum {k}")
+        out[k] = {"step_ms": float(np.median(ms[1:])), "first_ms": ms[0],
+                  "peak_bytes": peak, "step_peak_bytes": peak - held,
+                  "launches": per_step[-1], "loss_rel": loss_rel, "grad_worst": worst}
+        print(f"grad_accum {k}: step {out[k]['step_ms']:.2f} ms median after the first "
+              f"({ms[0]:.1f} ms), peak card memory {peak / 2**30:.2f} GiB, of which "
+              f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before "
+              f"the steps; launches a step bn_sum_sumsq/bn_bwd_sums/flip_scale "
+              f"{per_step[-1]}")
+    trainer.cfg = replace(trainer.cfg, grad_accum=1)
+    return out
+
+
+def box_mean(a: np.ndarray, k: int) -> np.ndarray:
+    """The mean over a k × k window (k odd) of a 2-D array, edges repeated."""
+    p = k // 2
+    c = np.pad(np.pad(a.astype(np.float64), p, mode="edge"), ((1, 0), (1, 0)))
+    c = c.cumsum(0).cumsum(1)
+    return (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)
+
+
+def make_regression_tiles(tiles: Path, root: Path) -> Path:
+    """The tile set's images with a continuous target: the band mean over
+    15 × 15 pixels ÷ 255, as float32 mask tiles."""
+    import shutil
+
+    from unet_tpu_torch.geo import read_raster, write_raster
+
+    for split in ("trai", "vali"):
+        for sub in ("img_tiles", "mask_tiles"):
+            (root / split / sub).mkdir(parents=True)
+        for f in sorted((tiles / split / "img_tiles").glob("*.tif")):
+            shutil.copyfile(f, root / split / "img_tiles" / f.name)
+            r = read_raster(f)
+            y = (box_mean(r.data.astype(np.float32).mean(0), 15) / 255).astype(np.float32)
+            write_raster(root / split / "mask_tiles" / f.name, y[None],
+                         transform=r.transform, crs=r.crs)
+    return root
+
+
+def surface_regression_serve(dev, tmp: Path, bundle: Path, scene: Path) -> dict:
+    """(c) The regression bundle served over the scene by predict_raster
+    (whole-scene mosaic of one channel, blend_count once a batch, 7
+    batches): float32 values, no -9999 nodata inside the scene; and on the
+    same windows' sums the finalize on the card bit-equal to the host
+    finalize_mosaic."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops.blend import DeviceMosaic, blend_and_count
+    from unet_tpu_torch.predict.merge import finalize_mosaic
+    from unet_tpu_torch.predict.predict import Predictor, predict_raster
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    pred = Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.bfloat16)
+    windows = generate_windows(SCENE, SCENE, PATCH, 0.2)
+    n_batches = -(-len(windows) // BATCH)
+    blend_and_count.launches = 0
+    t0 = time.perf_counter()
+    predict_raster(str(bundle), str(scene), str(tmp / "regression.tif"), patch_size=PATCH,
+                   batch_size=BATCH, predictor=pred, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = blend_and_count.launches
+    if launches != n_batches:
+        raise AssertionError(f"regression serve: blend_count launched {launches} times "
+                             f"for {n_batches} batches")
+    out = read_raster(tmp / "regression.tif").data
+    if out.dtype != np.float32 or out.shape != (1, SCENE, SCENE):
+        raise AssertionError(f"regression map {out.dtype} {out.shape}")
+    if (out == -9999).any() or not np.isfinite(out).all():
+        raise AssertionError("regression map has nodata or non-finite values in the scene")
+    hwc = np.moveaxis(read_raster(scene).data, 0, 2)
+    mos = DeviceMosaic(SCENE, SCENE, 1, device=dev)
+    for s in range(0, len(windows), BATCH):
+        chunk = windows[s:s + BATCH]
+        x = np.stack([hwc[w.indices()] for w in chunk])
+        if len(chunk) < BATCH:
+            x = np.concatenate([x, np.repeat(x[-1:], BATCH - len(chunk), 0)])
+        mos.add_batch(pred.predict_batch_device(x)[:len(chunk)].contiguous(),
+                      np.array([w.y for w in chunk]), np.array([w.x for w in chunk]))
+    host, nodata = finalize_mosaic(*mos.finalize(), regression=True)
+    card, card_nodata = mos.finish(regression=True)
+    if not (np.array_equal(card.cpu().numpy(), host) and card_nodata == nodata):
+        raise AssertionError("regression: the finalize on the card differs from the host's")
+    print(f"regression bundle served the {SCENE}² scene in {seconds:.2f} s: float32, "
+          f"values {float(out.min()):.4f}..{float(out.max()):.4f}, no nodata inside; "
+          f"blend_count launches {launches} ({n_batches} batches of {BATCH}); the finalize "
+          f"on the card bit-equal to the host finalize_mosaic")
+    return {"launches": launches, "seconds": seconds}
+
+
+def xresnet34_state_dict(seed: int) -> dict:
+    """A torch xresnet34 body in fastai's module layout and key names
+    (``0..2`` stem ConvLayers, ``3`` max pool, ``4..7`` stages of
+    ResBlocks with convpath/idpath), its weights from ``seed`` and its
+    BatchNorm parameters and statistics moved off their init."""
+    from torch import nn
+
+    def conv_layer(ni, nf, ks=3, stride=1, act=True):
+        layers = [nn.Conv2d(ni, nf, ks, stride, (ks - 1) // 2, bias=False),
+                  nn.BatchNorm2d(nf)]
+        return nn.Sequential(*layers, *([nn.ReLU()] if act else []))
+
+    class ResBlock(nn.Module):
+        def __init__(self, ni, nf, stride):
+            super().__init__()
+            self.convpath = nn.Sequential(conv_layer(ni, nf, 3, stride),
+                                          conv_layer(nf, nf, 3, act=False))
+            idpath = [nn.AvgPool2d(2, ceil_mode=True)] if stride != 1 else []
+            if ni != nf:
+                idpath.append(conv_layer(ni, nf, 1, act=False))
+            self.idpath = nn.Sequential(*idpath)
+
+    torch.manual_seed(seed)
+    stages, ni = [], 64
+    for s, (n, nf) in enumerate(zip((3, 4, 6, 3), (64, 128, 256, 512))):
+        stages.append(nn.Sequential(*[ResBlock(ni if b == 0 else nf, nf,
+                                               2 if s > 0 and b == 0 else 1)
+                                      for b in range(n)]))
+        ni = nf
+    body = nn.Sequential(conv_layer(3, 32, stride=2), conv_layer(32, 32), conv_layer(32, 64),
+                         nn.MaxPool2d(3, 2, 1), *stages)
+    with torch.no_grad():
+        for m in body.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0, 0.1)
+                m.running_mean.normal_(0, 0.2)
+                m.running_var.uniform_(0.5, 1.5)
+    return body.state_dict()
+
+
+def surface_pretrained(tmp: Path, trainers: dict) -> dict:
+    """(e) A fastai-named xresnet34 .pth (seed PRETRAINED_SEED) through
+    the CLI's ``import-weights`` (in this process) to an .npz; in each
+    topology the trainer starts from each file: every grafted tensor
+    bit-equal to the source (every encoder layer in parity; the residual
+    stages in tpu_opt, whose folded stem keeps the seed's fresh init bit
+    for bit), then one train step with a finite loss."""
+    from dataclasses import replace
+
+    from unet_tpu_torch.models.torch_import import convert_xresnet_state_dict
+    from unet_tpu_torch.train.checkpoint import to_flax_variables
+
+    from unet_tpu_torch.__main__ import cli
+
+    sd = xresnet34_state_dict(PRETRAINED_SEED)
+    pth, npz = tmp / "xresnet34.pth", tmp / "xresnet34.npz"
+    torch.save(sd, pth)
+    t0 = time.perf_counter()
+    if cli(["import-weights", str(pth), "--arch", "xresnet34", "-o", str(npz)]) != 0:
+        raise RuntimeError("import-weights failed")
+    wall = time.perf_counter() - t0
+    src_p, src_s = convert_xresnet_state_dict({k: v.numpy() for k, v in sd.items()},
+                                              "xresnet34")
+
+    def leaves(tree, prefix=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + (k,))
+            else:
+                yield prefix + (k,), np.asarray(v)
+
+    out = {"import_weights_s": wall}
+    for topology, trainer in trainers.items():
+        host = next(iter(trainer.train_loader))[:2]
+        trainer.cfg = replace(trainer.cfg, pretrained_weights=None)
+        trainer.set_weights()
+        fresh = to_flax_variables(trainer.model.state_dict())
+        for src in (pth, npz):
+            trainer.cfg = replace(trainer.cfg, pretrained_weights=str(src))
+            trainer.init_state()
+            got = to_flax_variables(trainer.model.state_dict())
+            n_src = n_fresh = 0
+            for kind, source in (("params", src_p), ("batch_stats", src_s)):
+                got_enc, fresh_enc = dict(leaves(got[kind]["encoder"])), \
+                    dict(leaves(fresh[kind]["encoder"]))
+                for path, a in leaves(source):
+                    if topology == "tpu_opt" and path[0].startswith("stem_"):
+                        continue
+                    if not np.array_equal(got_enc[path], a):
+                        raise AssertionError(f"pretrained {topology} {src.suffix}: "
+                                             f"{kind} {'/'.join(path)} differs from the source")
+                    n_src += 1
+                if topology == "tpu_opt":
+                    for path, a in fresh_enc.items():
+                        if path[0].startswith("stem_"):
+                            if not np.array_equal(got_enc[path], a):
+                                raise AssertionError(f"pretrained tpu_opt: {kind} "
+                                                     f"{'/'.join(path)} left its fresh init")
+                            n_fresh += 1
+            loss = float(trainer.train_step(*host))
+            if not np.isfinite(loss):
+                raise AssertionError(f"pretrained {topology} {src.suffix}: loss {loss}")
+            out[f"{topology}{src.suffix}"] = {"grafted": n_src, "fresh_stem": n_fresh,
+                                              "loss": loss}
+            print(f"pretrained {topology} from {src.suffix}: {n_src} encoder tensors "
+                  f"bit-equal to the source, {n_fresh} stem tensors at their fresh init; "
+                  f"one step, loss {loss:.5f}")
+        trainer.cfg = replace(trainer.cfg, pretrained_weights=None)
+    return out
+
+
+def surface_existing(tiles: Path, tmp: Path, bundle: Path) -> dict:
+    """(f) ``existing_model`` on phase 4's tpu_opt bundle from a
+    ``tpu_opt=False`` config: the trainer adopts tpu_opt, its first step
+    starts from the bundle's weights bit for bit, and the step's loss is
+    finite."""
+    from unet_tpu_torch.train.checkpoint import bundle_paths, from_flax_variables, load_weights
+
+    trainer = surface_trainer(tiles, tmp, tpu_opt=False, existing_model=str(bundle))
+    try:
+        if not trainer.cfg.tpu_opt:
+            raise AssertionError("existing_model did not adopt the bundle's tpu_opt")
+        trainer.init_state()
+        want = from_flax_variables(load_weights(bundle_paths(bundle)[2]))
+        got = trainer.model.state_dict()
+        bad = [k for k, a in want.items()
+               if not np.array_equal(got[k].cpu().numpy(), np.asarray(a, np.float32))]
+        if bad or set(got) != set(want):
+            raise AssertionError(f"existing_model: {len(bad)} tensors differ from the bundle")
+        loss = float(trainer.train_step(*next(iter(trainer.train_loader))[:2]))
+    finally:
+        trainer.close()
+    if not np.isfinite(loss):
+        raise AssertionError(f"existing_model step loss {loss}")
+    print(f"existing_model: adopted tpu_opt from the bundle; all {len(want)} tensors "
+          f"bit-equal to it before the first step; step loss {loss:.5f}")
+    return {"tensors": len(want), "loss": loss}
+
+
+def surface_lr_weights(trainer, tmp: Path) -> dict:
+    """(d) ``fit`` with ``lr_finder`` (its sweep cut to SWEEP_CHECK_ITERS
+    steps, no epoch) leaves the model at the weights a run without the
+    finder starts from, bit for bit."""
+    import functools
+    from dataclasses import replace
+
+    trainer.cfg = replace(trainer.cfg, lr_finder=None)
+    trainer.init_state()
+    start = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    trainer.lr_find = functools.partial(trainer.lr_find, num_it=SWEEP_CHECK_ITERS)
+    trainer.cfg = replace(trainer.cfg, lr_finder="valley", epochs=0)
+    try:
+        with quiet_stdout(tmp / "lr_weights_fit.log"):
+            trainer.fit()
+    finally:
+        del trainer.lr_find
+        trainer.cfg = replace(trainer.cfg, lr_finder=None, epochs=1)
+    bad = [k for k, v in trainer.model.state_dict().items() if not torch.equal(v, start[k])]
+    if bad:
+        raise AssertionError(f"after the sweep, fit starts from other weights: {bad[:3]}")
+    r = trainer.lr_find_result
+    print(f"lr_finder in fit: a {r['steps']}-step sweep (lr {r['lr']:.3g}), then fit's "
+          f"weights bit-equal to a run without the finder over {len(start)} tensors")
+    return {"steps": r["steps"], "tensors": len(start)}
+
+
+def surface_losses(trainer, tiles: Path, reg_tiles: Path, tmp: Path) -> dict:
+    """(g) A kernel step against a plain step with the dice loss, and with
+    MSE, L1 and smooth L1 on a regression trainer over the continuous
+    targets, held in float32 with TF32 off. In bf16 the dice loss's
+    gradients into the encoder sit near the rounding noise that the order
+    of a BatchNorm sum moves, so its bf16 step (on the bf16 trainer) is
+    printed, not held."""
+    from dataclasses import replace
+
+    from unet_tpu_torch.train.losses import build_loss
+
+    out = {}
+    host = next(iter(trainer.train_loader))[:2]
+    saved = trainer.loss_fn
+    trainer.cfg, trainer.loss_fn = replace(trainer.cfg, loss_func="dice"), build_loss("dice")
+    try:
+        out["dice_bf16"] = step_check(trainer, host, "dice loss, bf16 (not held)", hold=False)
+    finally:
+        trainer.cfg, trainer.loss_fn = replace(trainer.cfg, loss_func=None), saved
+    for data, names, kw in ((tiles, ("dice",), {}),
+                            (reg_tiles, ("mse", "l1", "smooth_l1"), {"regression": True})):
+        t = surface_trainer(data, tmp, bf16=False, **kw)
+        try:
+            t.init_state()
+            host = next(iter(t.train_loader))[:2]
+            with tf32_off():
+                for name in names:
+                    t.cfg = replace(t.cfg, loss_func=name)
+                    t.loss_fn = build_loss(name, regression=t.cfg.regression)
+                    out[name] = step_check(t, host, f"{name} loss, float32"
+                                           + (", regression" if t.cfg.regression else ""))
+        finally:
+            t.close()
+    return out
+
+
+def train_surface_phase(dev, tmp: Path, tiles: Path, bundle: Path, scene: Path) -> dict:
+    """Phase 8c, the training surface on the flagship at 16 × 512², bf16:
+    (a) every augmentation op, (b) grad_accum 1/2/4, fit's fresh weights
+    after a sweep, (e) pretrained encoders from .pth and .npz in both
+    topologies, (f) existing_model, (g) the other losses, (c)+(d) ``train
+    --regression --lr-finder valley`` through the CLI (the sweep of up to
+    100 steps, its CSV, rmse and r2_score) with the bundle served; the
+    phase's seconds, each part's, and each kernel's launches."""
+    from unet_tpu_torch.data import AugmentConfig
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out[name] = fn(*args)
+        parts[name] = time.perf_counter() - t
+
+    out = {}
+    part("augment", surface_augment, dev, tiles)
+    trainer = surface_trainer(tiles, tmp, aug=AugmentConfig(**SURFACE_AUG))
+    parity = surface_trainer(tiles, tmp, tpu_opt=False)
+    try:
+        part("grad_accum", surface_grad_accum, trainer)
+        part("lr_weights", surface_lr_weights, trainer, tmp)
+        part("pretrained", surface_pretrained, tmp, {"tpu_opt": trainer, "parity": parity})
+        parity.close()
+        part("existing", surface_existing, tiles, tmp, bundle)
+        part("regression_tiles", make_regression_tiles, tiles, tmp / "regression_tiles")
+        reg_tiles = out.pop("regression_tiles")
+        part("losses", surface_losses, trainer, tiles, reg_tiles, tmp)
+    finally:
+        trainer.close()
+        parity.close()
+    del trainer, parity
+    part("regression_cli", train_cli_phase, tmp, reg_tiles, "regression", TRAIN_EPOCHS,
+         ("--regression", "--lr-finder", "valley"))
+    reg = out.pop("regression_cli")
+    sweep = reg["stats"]["lr_find"]
+    print(f"LR sweep in the regression CLI run: {sweep['seconds']:.2f} s, {sweep['steps']} "
+          f"steps, stopped {'on divergence' if sweep['diverged'] else 'at its end'} with "
+          f"{sweep['iterations']} losses; suggestions "
+          + ", ".join(f"{m} {v:.3g}" for m, v in sweep["suggestions"].items())
+          + f"; lr chosen ({sweep['method']}) {sweep['lr']:.3g}")
+    out["regression_cli"] = {"launches": reg["launches"], "sweep": {
+        k: sweep[k] for k in ("seconds", "steps", "iterations", "diverged", "suggestions",
+                              "lr")}, "history": reg["stats"]["history"]}
+    part("regression_serve", surface_regression_serve, dev, tmp, reg["bundle"], scene)
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    print(f"train surface phase: {out['seconds']:.1f} s; "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -1872,6 +2393,12 @@ def main() -> int:
     print(smi)
     print(f"device: {name} x{torch.cuda.device_count()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    for mod in ("matplotlib", "pandas"):  # what the PNG plots and figures would need
+        try:
+            version = importlib.import_module(mod).__version__
+            print(f"{mod}: imports ({version})")
+        except ImportError as e:
+            print(f"{mod}: does not import ({type(e).__name__}: {e})")
 
     log(f"-- phase 2 at {time.perf_counter() - t_start:.1f} s")
     # 2. build from source, cold even where a library is cached, one nvcc
@@ -2076,6 +2603,12 @@ def main() -> int:
               f"of the {par_in['step_ms']:.2f} ms step; full-resolution tail "
               f"{parts['tail_ms']:.2f} ms = {100 * parts['tail_ms'] / par_in['step_ms']:.1f}%")
 
+        log(f"-- phase 8c at {time.perf_counter() - t_start:.1f} s")
+        # 8c. the training surface: augmentation, grad_accum, regression with
+        # the LR finder through the CLI and served, pretrained encoders,
+        # existing_model, the other losses
+        surface = train_surface_phase(dev, tmp, tiles, bundle, tmp / "scene.tif")
+
         log(f"-- phase 9 at {time.perf_counter() - t_start:.1f} s")
         # 9. bf16 vs float32 class maps on one batch of 16 tiles (TF32 off)
         pred32 = Predictor(str(bundle), batch_size=BATCH, device=dev,
@@ -2225,6 +2758,22 @@ def main() -> int:
         "bn_sum_sumsq": {"any_size": 0}, "bn_bwd_sums": {"any_size": 0},
         "flip_scale": {"any_size": 0}, "offset_copy": {"any_size": 0},
     }
+    reg_cli = surface["regression_cli"]["launches"]
+    train_surface = {  # each kernel's launches in phase 8c, counts set to 0 before each
+        "blend_count": {"regression_serve": surface["regression_serve"]["launches"]},
+        "bn_sum_sumsq": {**{f"grad_accum_{k}_step": r["launches"][0]
+                            for k, r in surface["grad_accum"].items()},
+                         "regression_lr_finder_cli": reg_cli["bn_sum_sumsq"]},
+        "bn_bwd_sums": {**{f"grad_accum_{k}_step": r["launches"][1]
+                           for k, r in surface["grad_accum"].items()},
+                        "regression_lr_finder_cli": reg_cli["bn_bwd_sums"]},
+        "flip_scale": {**{f"augment_{k.split(',')[0]}": r["launches"]
+                          for k, r in surface["augment"].items()},
+                       **{f"grad_accum_{k}_step": r["launches"][2]
+                          for k, r in surface["grad_accum"].items()},
+                       "regression_lr_finder_cli": reg_cli["flip_scale"]},
+        "offset_copy": {"train_surface": 0},
+    }
     for kname, n in pipeline.items():
         path_counts = [v for k, v in n.items() if k in ("predict_device_merge", "pipeline_train")]
         if any(c <= 0 for c in path_counts):
@@ -2261,7 +2810,8 @@ def main() -> int:
         {"name": kname, "route": "cuda", "source": cuda_src + src, "replaces": replaces,
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
-         "pipeline": pipeline[kname], "any_size": any_size[kname]}
+         "pipeline": pipeline[kname], "any_size": any_size[kname],
+         "train_surface": train_surface[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

@@ -1,5 +1,7 @@
 """PyTorch port: flip + scale augmentation against the JAX package on the CPU.
 
+(Every other op, with JAX's own draws, is in tests/test_torch_augment_full.py.)
+
 The plain version of the ``flip_scale`` kernel is held bit-equal to the
 Pallas kernel of ``unet_tpu/ops/pallas_aug.py`` in interpret mode, given
 the same explicit flags; the port's ``augment_batch`` follows JAX's
@@ -125,12 +127,26 @@ def test_scales_match_jax(dtype_str, normalize):
 
 
 def test_more_than_flips_is_not_yet_ported():
+    """A config beyond flips augments as JAX's does: brightness/contrast
+    at p = 1 with degenerate limits (α = 1.05 and β = 0.02 on every
+    sample, so no draw is shared) on the first ceil(B·0.5) samples, int8
+    'unit' scaling; 1e-6 relative (float32 multiply-add)."""
     img, msk = _batch(3, "uint8")
-    cfg = taug.AugmentConfig(brightness_contrast_p=0.5)
-    assert cfg.describe() == jaug.AugmentConfig(brightness_contrast_p=0.5).describe()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        taug.augment_batch(torch.from_numpy(img), torch.from_numpy(msk), cfg,
-                           torch.Generator())
+    kw = dict(hflip_p=0.0, vflip_p=0.0, brightness_contrast_p=1.0,
+              brightness_limit=(0.02, 0.02), contrast_limit=(0.05, 0.05))
+    cfg = taug.AugmentConfig(**kw)
+    assert cfg.describe() == jaug.AugmentConfig(**kw).describe()
+    want_i, want_m = jaug.augment_batch(
+        jax.random.PRNGKey(0), jnp.asarray(np.moveaxis(img, 1, 3).astype(np.float32)),
+        jnp.asarray(msk), jaug.AugmentConfig(**kw), n_transform_imgs=0.5,
+        dtype_str="int8", normalize="unit", use_fused=False)
+    got_i, got_m = taug.augment_batch(torch.from_numpy(img), torch.from_numpy(msk), cfg,
+                                      torch.Generator(), n_transform_imgs=0.5,
+                                      dtype_str="int8", normalize="unit")
+    np.testing.assert_allclose(np.moveaxis(got_i.numpy(), 1, 3), np.asarray(want_i),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    assert not np.array_equal(np.asarray(want_i)[:2], img.transpose(0, 2, 3, 1)[:2] / 255)
 
 
 # --- the host side of a flip_scale launch: parameter blocks and the plan ---

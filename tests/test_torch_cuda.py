@@ -346,6 +346,117 @@ def test_parity_sa_train_step_kernels_against_plain(dev):
     torch.testing.assert_close(out["kernel"][2], out["plain"][2], rtol=1e-5, atol=1e-6)
 
 
+AUG_FULL = dict(rot90_p=0.5, brightness_contrast_p=0.5, saturation_p=0.5,
+                coarse_dropout_p=0.5)
+
+
+@pytest.mark.parametrize("img_dtype,dtype_str,quirks,frac", [
+    (torch.uint8, "int8", False, 1.0), (torch.int16, "int16", True, 0.5),
+    (torch.uint16, "int16", False, 1.0), (torch.float32, "int8", False, 0.75)])
+@pytest.mark.parametrize("mask_dtype", [torch.uint8, torch.float32])
+def test_full_augmentation_kernel_path_equals_plain(dev, img_dtype, dtype_str, quirks, frac,
+                                                    mask_dtype):
+    """Every AugmentConfig op at p = 0.5 on 8 × 3 × 64² tiles (float32
+    masks: a regression target through the kernel as its int32 bits): the
+    draws through flip_scale bit-equal to the same draws through its
+    plain version, one launch a batch."""
+    from unet_tpu_torch.data import augment as A
+    from unet_tpu_torch.ops import aug
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    hi = {torch.uint8: 256, torch.int16: 30000, torch.uint16: 65536}.get(img_dtype)
+    x = (torch.rand((8, 3, 64, 64), generator=g, device=dev) * 300 if hi is None else
+         torch.randint(0, hi, (8, 3, 64, 64), generator=g, device=dev).to(img_dtype))
+    m = (torch.rand((8, 64, 64), generator=g, device=dev) if mask_dtype == torch.float32
+         else torch.randint(0, 3, (8, 64, 64), generator=g, device=dev).to(mask_dtype))
+    cfg = A.AugmentConfig(**AUG_FULL)
+    n_aug = A.n_augmented(8, frac, quirks)
+    draws = A.draw_augment(8, 64, 64, cfg, n_aug, torch.Generator().manual_seed(4))
+    scales = A.sample_scales(8, n_aug, dtype_str, "reference", quirks)
+    before = aug.fused_flip_scale.launches
+    xk, mk = A.apply_augment(x, m, draws, scales, cfg, A.value_max(dtype_str))
+    assert aug.fused_flip_scale.launches == before + 1
+    xp, mp = A.apply_augment(x, m, draws, scales, cfg, A.value_max(dtype_str),
+                             aug.fused_flip_scale_reference)
+    torch.cuda.synchronize()
+    assert xk.dtype == torch.float32 and mk.dtype == mask_dtype
+    assert torch.equal(xk, xp) and torch.equal(mk, mp)
+
+
+def _tile_tree(root, n_train=8, n_valid=4, tile=64, regression=False):
+    from unet_tpu_torch.geo import write_raster
+
+    rng = np.random.default_rng(0)
+    for scene, n in (("trai", n_train), ("vali", n_valid)):
+        for sub in ("img_tiles", "mask_tiles"):
+            (root / scene / sub).mkdir(parents=True)
+        for i in range(n):
+            img = np.kron(rng.integers(0, 256, (3, tile // 8, tile // 8)),
+                          np.ones((8, 8), np.int64)).astype(np.uint8)
+            mask = (img.mean(0, dtype=np.float32)[None] / 255 if regression
+                    else (img[:1] > 128).astype(np.uint8))
+            for sub, a in (("img_tiles", img), ("mask_tiles", mask)):
+                write_raster(root / scene / sub / f"{i}.tif", a,
+                             transform=(0.0, 1.0, 0.0, 0.0, 0.0, -1.0), crs="EPSG:25832")
+    return root
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2, 4])
+@pytest.mark.parametrize("regression", [False, True])
+def test_grad_accum_step_kernels_against_plain(dev, tmp_path, grad_accum, regression):
+    """A float32 train step (TF32 off) of the xresnet18 tpu_opt U-Net at
+    8 × 64² with every augmentation op, split into ``grad_accum``
+    microbatches: each BatchNorm launches each bn_stats kernel once a
+    microbatch and flip_scale runs once a step; against the same step with
+    the plain versions from the same state, batch and draws: loss within
+    1e-4 relative, each gradient within 5e-2 relative L2 (floor 1e-2 of
+    the RMS), as the parity step test."""
+    from unet_tpu_torch.data import AugmentConfig
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import aug, bn
+    from unet_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    t = Trainer(TrainerConfig(data_path=_tile_tree(tmp_path, regression=regression),
+                              codes=("a", "b"), arch="xresnet18", batch_size=8, bf16=False,
+                              grad_accum=grad_accum, regression=regression,
+                              aug=AugmentConfig(**AUG_FULL), loader_threads=2))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t.init_state()
+        state = {k: v.clone() for k, v in t.model.state_dict().items()}
+        images, masks, _ = next(iter(t.train_loader))
+        bns = [m for m in t.model.modules() if isinstance(m, BatchNorm)]
+        out = {}
+        for name, red, fs in (("kernel", bn.KERNEL_REDUCTIONS, aug.fused_flip_scale),
+                              ("plain", bn.PLAIN_REDUCTIONS, aug.fused_flip_scale_reference)):
+            t.model.load_state_dict(state)
+            for m in bns:
+                m.reductions = red
+            before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches,
+                      aug.fused_flip_scale.launches)
+            x, y = t.augment(*t.to_device(images, masks), "train",
+                             torch.Generator().manual_seed(6), flip_scale=fs)
+            loss = t.loss_and_grads(x, y).item()
+            torch.cuda.synchronize()
+            launched = tuple(a.launches - b for a, b in zip(
+                (bn.bn_sum_sumsq, bn.bn_bwd_sums, aug.fused_flip_scale), before))
+            out[name] = (loss, [p.grad.clone() for p in t.model.parameters()], launched,
+                         t.model.state_dict()["mid_bn.running_var"].clone())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        t.close()
+    n = len(bns) * grad_accum
+    assert out["kernel"][2] == (n, n, 1) and out["plain"][2] == (0, 0, 0), (out["kernel"][2], out["plain"][2], n)
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-4 * abs(out["plain"][0])
+    gk, gp = out["kernel"][1], out["plain"][1]
+    g_rms = (sum(float(a.pow(2).sum()) for a in gp) / sum(a.numel() for a in gp)) ** 0.5
+    for a, b in zip(gk, gp):
+        rms = float(b.norm()) / b.numel() ** 0.5
+        assert float((a - b).norm()) / b.numel() ** 0.5 <= 5e-2 * max(rms, 1e-2 * g_rms)
+    torch.testing.assert_close(out["kernel"][3], out["plain"][3], rtol=1e-5, atol=1e-6)
+
+
 FLIP_IMAGE_DTYPES = [torch.uint8, torch.uint16, torch.int16, torch.float32]
 FLIP_MASK_DTYPES = [None, torch.uint8, torch.int8, torch.int16, torch.uint16, torch.int32,
                     torch.uint32, torch.int64]

@@ -76,8 +76,11 @@ def test_cross_entropy_sample_mask_matches_jax():
     got = tl.build_loss(None, torch.from_numpy(weight))(
         _nchw(logits), torch.from_numpy(targets), sample_mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.item(), want, rtol=1e-5)  # float32 sum order
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tl.build_loss("dice")
+    want_dice = float(jl.dice_loss(jnp.asarray(logits), jnp.asarray(targets),
+                                   sample_mask=jnp.asarray(mask)))
+    got_dice = tl.build_loss("dice")(_nchw(logits), torch.from_numpy(targets),
+                                     sample_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got_dice.item(), want_dice, rtol=1e-5)
 
 
 def test_dice_multi_matches_jax():

@@ -1,6 +1,6 @@
 """PyTorch port, the slice end to end: ``python -m unet_tpu_torch train`` on
 the CPU, the bundle it exports read back by the JAX package and served by
-the port, and the options that are not ported yet."""
+the port, the training flags, and the options that are not ported yet."""
 
 import csv
 import json
@@ -172,27 +172,79 @@ def test_training_repeats_bit_for_bit_with_its_seed(trained, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lr-finder", "valley"], ["--existing-model", "m"], ["--pretrained-weights", "w.pth"],
-    ["--grad-accum", "2"], ["--regression"],
-    # the parity topology and self-attention are ported; an unported option
-    # beside them still fails
-    ["--no-tpu-opt", "--grad-accum", "2"], ["--self-attention", "--regression"],
-    ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"],
-    ["--profile-dir", "prof"], ["--reference-quirks"]])
+    ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]])
 def test_unported_train_options_fail_clearly(trained, flag, capsys):
     assert cli(["train", *trained["args"], *flag]) == 2
     assert "not yet ported" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("flag,want", [
+    (["--lr-finder", "valley"], {"lr_finder": "valley"}),
+    (["--existing-model", "m"], {"existing_model": "m"}),
+    (["--pretrained-weights", "w.pth"], {"pretrained_weights": "w.pth"}),
+    (["--grad-accum", "2"], {"grad_accum": 2}),
+    (["--regression"], {"regression": True}),
+    (["--no-tpu-opt", "--grad-accum", "2"], {"tpu_opt": False, "grad_accum": 2}),
+    (["--self-attention", "--regression"], {"self_attention": True, "regression": True}),
+    (["--profile-dir", "prof"], {"profile_dir": "prof"}),
+    (["--reference-quirks"], {"reference_quirks": True})])
+def test_train_options_reach_the_trainer_config(trained, flag, want, monkeypatch):
+    """Each training flag of the JAX CLI parses into the TrainerConfig
+    field ``unet_tpu train`` sets from it; the other fields keep the
+    values of the base arguments. (The runs themselves are held against
+    JAX in tests/test_torch_{losses,regression,lr_find,pretrained,
+    trainer_surface}.py.)"""
+    seen = []
+
+    class Capture:
+        def __init__(self, cfg):
+            seen.append(cfg)
+            self.device = torch.device("cpu")
+
+    monkeypatch.setattr(loop, "Trainer", Capture)
+    monkeypatch.setattr(loop, "train_model", lambda cfg, trainer: "bundle")
+    assert cli(["train", *trained["args"], *flag]) == 0
+    (cfg,) = seen
+    base = loop.TrainerConfig(data_path=trained["root"] / "tiles", codes=CODES)
+    for name, value in want.items():
+        assert getattr(cfg, name) == value, name
+    for name in ("lr_finder", "existing_model", "pretrained_weights", "grad_accum",
+                 "regression", "profile_dir", "reference_quirks", "self_attention"):
+        if name not in want:
+            assert getattr(cfg, name) == getattr(base, name), name
+    assert (cfg.arch, cfg.batch_size, cfg.device) == ("xresnet18", 4, "cpu")
+
+
 def test_unported_trainer_settings_raise(trained):
+    """The settings beyond the default path build a trainer as JAX's does:
+    rot90 in the manifest's augmentation map, the dice loss, and the
+    r2_score monitor maximized (the JAX rule); a batch that does not
+    split into grad_accum microbatches raises in both."""
     base = dict(data_path=trained["root"] / "tiles", codes=CODES, arch="xresnet18",
-                batch_size=4, epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        loop.Trainer(loop.TrainerConfig(aug=AugmentConfig(rot90_p=0.5), **base))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        loop.Trainer(loop.TrainerConfig(loss_func="dice", **base))
-    with pytest.raises(ValueError, match="monitor"):
-        loop.Trainer(loop.TrainerConfig(monitor="r2_score", **base))
+                batch_size=4, epochs=1)
+    jt = jax_loop.Trainer(jax_loop.TrainerConfig(
+        aug=jax_loop.AugmentConfig(rot90_p=0.5), loss_func="dice", monitor="r2_score",
+        loader_threads=2, **base))
+    t = loop.Trainer(loop.TrainerConfig(aug=AugmentConfig(rot90_p=0.5), loss_func="dice",
+                                        monitor="r2_score", loader_threads=2,
+                                        device="cpu", **base))
+    try:
+        assert t.manifest() == jt.manifest()
+        assert (t.monitor, t.comp) == (jt.monitor, jt.comp) == ("r2_score", np.greater)
+        rng = np.random.default_rng(9)
+        logits = rng.normal(size=(2, 8, 8, 3)).astype(np.float32)
+        y = rng.integers(0, 3, (2, 8, 8))
+        want = float(jt.loss_fn(jnp.asarray(logits), jnp.asarray(y)))
+        got = t.loss_fn(torch.from_numpy(np.moveaxis(logits, 3, 1).copy()), torch.from_numpy(y))
+        np.testing.assert_allclose(got.item(), want, rtol=1e-6)  # float32 sum order
+    finally:
+        t.close()
+        jt.close()
+    for trainer in (loop.Trainer, jax_loop.Trainer):
+        cfg = (loop.TrainerConfig(device="cpu", grad_accum=3, **base)
+               if trainer is loop.Trainer else jax_loop.TrainerConfig(grad_accum=3, **base))
+        with pytest.raises(ValueError, match="grad_accum"):
+            trainer(cfg)
 
 
 def test_train_needs_cuda_unless_cpu_is_asked(trained, monkeypatch, capsys):

@@ -1,9 +1,10 @@
-"""CLI front-end: ``python -m unet_tpu_torch <tile|train|predict|serve|import-model|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <tile|train|predict|serve|import-weights|import-model|doctor> ...``.
 
     python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch predict models/run1 pred/img_tiles --merge [--device-merge]
     python -m unet_tpu_torch serve models/run1 scene.tif out.tif [--stream]
+    python -m unet_tpu_torch import-weights xresnet34.pth -o xresnet34.npz
     python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
 
@@ -17,7 +18,10 @@ it fits, else a band of rows on the card over the scene in RAM, else (past
 the host budget, or with ``--stream``) windowed reads with the finished
 rows streamed to the output file.
 ``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
-``--self-attention`` in either), ``predict`` and ``serve`` (any bundle:
+``--self-attention`` in either; ``--regression``, ``--lr-finder``,
+``--existing-model``, ``--pretrained-weights`` (a ``.pth`` or an ``.npz``
+that ``import-weights`` writes), ``--grad-accum``, ``--reference-quirks``
+and ``--profile-dir`` as in ``unet_tpu``), ``predict`` and ``serve`` (any bundle:
 tpu_opt, parity, imported) and ``import-model`` (a fastai DynamicUnet
 state_dict → a parity bundle) also take ``--device`` (default ``cuda``);
 ``train`` and ``serve``
@@ -74,29 +78,38 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--batch-size", type=int, default=4)
     tr.add_argument("--epochs", type=int, default=15)
     tr.add_argument("--lr", type=float, default=1e-4)
-    tr.add_argument("--regression", action="store_true", help="not yet ported")
+    tr.add_argument("--regression", action="store_true")
     tr.add_argument("--class-weights", default="even")
     tr.add_argument("--self-attention", action="store_true",
                     help="self-attention in the third-from-last decoder block")
-    tr.add_argument("--existing-model", default=None, help="not yet ported")
-    tr.add_argument("--lr-finder", default=None, help="not yet ported")
-    tr.add_argument("--pretrained-weights", default=None, help="not yet ported")
+    tr.add_argument("--existing-model", default=None,
+                    help="transfer learning: start from this bundle's weights "
+                         "and topology")
+    tr.add_argument("--lr-finder", default=None,
+                    help="minimum|steep|valley|slide: sweep the LR first and "
+                         "train at the suggestion")
+    tr.add_argument("--pretrained-weights", default=None,
+                    help="torch .pth or converted .npz (see import-weights)")
     tr.add_argument("--tpu-opt", action=argparse.BooleanOptionalAction, default=True,
                     help="the tpu_opt topology (default); --no-tpu-opt trains the "
                          "reference-shaped parity topology (also chosen for tiles "
                          "whose sides are not divisible by 4)")
-    tr.add_argument("--grad-accum", type=int, default=1, help="> 1: not yet ported")
+    tr.add_argument("--grad-accum", type=int, default=1,
+                    help="split each batch into N sequential microbatches: "
+                         "less activation memory a step (BatchNorm uses "
+                         "microbatch statistics)")
     tr.add_argument("--seed", type=int, default=0)
-    tr.add_argument("--reference-quirks", action="store_true", help="not yet ported")
-    tr.add_argument("--profile-dir", default=None, help="not yet ported")
+    tr.add_argument("--reference-quirks", action="store_true")
+    tr.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the first epoch here")
     tr.add_argument("--coordinator", default=None, help="not yet ported")
     tr.add_argument("--num-processes", type=int, default=None, help="not yet ported")
     tr.add_argument("--process-id", type=int, default=None, help="not yet ported")
     tr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     tr.add_argument("--stats-json", default=None,
-                    help="write steps, seconds, tiles/s, step ms and kernel "
-                         "launch counts here")
+                    help="write steps, seconds, tiles/s, step ms, kernel "
+                         "launch counts, peak card memory and the LR sweep here")
 
     pr = sub.add_parser("predict", help="predict tiles with a trained bundle")
     pr.add_argument("model")
@@ -163,6 +176,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "seconds, kernel launch counts and peak card memory "
                          "here")
 
+    iw = sub.add_parser(
+        "import-weights",
+        help="convert a torch/fastai xresnet state_dict (.pth) to an .npz for "
+             "--pretrained-weights")
+    iw.add_argument("state_dict", help="path to the torch .pth file")
+    iw.add_argument("--arch", default="xresnet34")
+    iw.add_argument("-o", "--out", default=None,
+                    help="output .npz (default: <state_dict>.npz)")
+
     im = sub.add_parser(
         "import-model",
         help="convert a full trained fastai DynamicUnet state_dict (.pth) into "
@@ -213,6 +235,12 @@ def train_kernel_launches() -> dict:
             "flip_scale": fused_flip_scale.launches}
 
 
+def _peak_device_bytes(device):
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
 def _device_name(device) -> str:
     import torch
 
@@ -236,6 +264,12 @@ def _dispatch(args) -> int:
         return 0
     if args.command == "predict":
         return _predict(args)
+    if args.command == "import-weights":
+        from .models.torch_import import import_weights_cli
+
+        out = args.out or (str(args.state_dict).rsplit(".", 1)[0] + ".npz")
+        import_weights_cli(args.state_dict, out, arch=args.arch)
+        return 0
     if args.command == "import-model":
         from .models.torch_import import import_model_cli
 
@@ -247,10 +281,6 @@ def _dispatch(args) -> int:
 
 
 UNPORTED_TRAIN_ARGS = (
-    ("regression", "--regression"), ("existing_model", "--existing-model"),
-    ("lr_finder", "--lr-finder"),
-    ("pretrained_weights", "--pretrained-weights"),
-    ("reference_quirks", "--reference-quirks"), ("profile_dir", "--profile-dir"),
     ("coordinator", "--coordinator"), ("num_processes", "--num-processes"),
     ("process_id", "--process-id"))
 
@@ -259,20 +289,26 @@ def _train(args) -> int:
     from .train.loop import Trainer, TrainerConfig, train_model
 
     for attr, flag in UNPORTED_TRAIN_ARGS:
-        if getattr(args, attr) is not None and getattr(args, attr) is not False:
+        if getattr(args, attr) is not None:
             raise NotImplementedError(f"{flag} is not yet ported")
-    if args.grad_accum > 1:
-        raise NotImplementedError("--grad-accum > 1 is not yet ported")
     cw = args.class_weights
     if cw not in ("even", "weighted"):
         cw = json.loads(cw)
     cfg = TrainerConfig(data_path=args.data_path, model_path=args.model_path,
                         description=args.description, codes=args.codes,
                         arch=args.arch, batch_size=args.batch_size,
-                        epochs=args.epochs, lr=args.lr, class_weights=cw,
-                        tpu_opt=args.tpu_opt, self_attention=args.self_attention,
-                        seed=args.seed, device=args.device)
+                        epochs=args.epochs, lr=args.lr, regression=args.regression,
+                        class_weights=cw, self_attention=args.self_attention,
+                        existing_model=args.existing_model, lr_finder=args.lr_finder,
+                        pretrained_weights=args.pretrained_weights,
+                        tpu_opt=args.tpu_opt, seed=args.seed, grad_accum=args.grad_accum,
+                        reference_quirks=args.reference_quirks,
+                        profile_dir=args.profile_dir, device=args.device)
     trainer = Trainer(cfg)
+    if trainer.device.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(trainer.device)
     t0 = time.perf_counter()
     out = train_model(cfg, trainer)
     seconds = time.perf_counter() - t0
@@ -291,6 +327,8 @@ def _train(args) -> int:
             "launches": train_kernel_launches(),
             "loader": {"path": trainer.train_loader.path,
                        "first_batch_ms": trainer.train_loader.first_batch_ms},
+            "peak_device_bytes": _peak_device_bytes(trainer.device),
+            "lr_find": trainer.lr_find_result,
         }
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1)
@@ -373,7 +411,6 @@ def _serve(args) -> int:
     if args.stats_json:
         scenes = predictor.scenes
         n_windows = sum(s["windows"] for s in scenes)
-        cuda = predictor.device.type == "cuda"
         stats = {
             "device": str(predictor.device),
             "device_name": _device_name(predictor.device),
@@ -384,8 +421,7 @@ def _serve(args) -> int:
             "forward_ms": predictor.forward_ms(),
             "scenes": scenes,
             "launches": {"blend_count": blend_and_count.launches},
-            "peak_device_bytes": (torch.cuda.max_memory_allocated(predictor.device)
-                                  if cuda else None),
+            "peak_device_bytes": _peak_device_bytes(predictor.device),
         }
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1)

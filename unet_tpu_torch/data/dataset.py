@@ -77,6 +77,10 @@ class TileDataset:
 
     data_path: Path
     valid_scenes: Sequence[str] = ("vali",)
+    regression: bool = False
+    # the reference loads every image through astype(np.int32), which
+    # truncates float rasters toward zero
+    reference_quirks: bool = False
     train_files: List[Path] = field(default_factory=list)
     valid_files: List[Path] = field(default_factory=list)
 
@@ -92,14 +96,27 @@ class TileDataset:
     def load_pair(self, img_path: Path) -> Tuple[np.ndarray, np.ndarray]:
         """(image (C,H,W) in the tile's own dtype, mask (H,W)) for one tile.
 
-        Images and integer masks stay in their storage dtype, so a uint8
-        tile costs 1 byte a pixel through host RAM and the copy to the
-        device; float-stored class masks become int32. Mask band 0 only."""
-        img = read_raster(img_path).data
+        Images and integer class masks stay in their storage dtype, so a
+        uint8 tile costs 1 byte a pixel through host RAM and the copy to the
+        device; float-stored class masks become int32, regression masks
+        float32. Mask band 0 only."""
+        img = self.load_image(img_path)
         msk = read_raster(get_mask_path(img_path)).data[0]
-        if msk.dtype.kind not in "iu":
+        if self.regression:
+            msk = msk.astype(np.float32)
+        elif msk.dtype.kind not in "iu":
             msk = msk.astype(np.int32)
         return img, msk
+
+    def load_image(self, img_path: Path) -> np.ndarray:
+        """The image tile (C,H,W). Under ``reference_quirks`` a float raster
+        is truncated through int32 and kept as float32: the values the
+        network sees in either package, in a dtype the ``flip_scale`` kernel
+        takes."""
+        data = read_raster(img_path).data
+        if self.reference_quirks and data.dtype.kind == "f":
+            data = data.astype(np.int32).astype(np.float32)
+        return data
 
     @property
     def n_train(self) -> int:

@@ -65,13 +65,16 @@ class TileLoader:
         self._tile_dtype: Optional[np.dtype] = None
         self._mask_dtype: Optional[np.dtype] = None
         self._native = False
-        if self.files and native.available():
+        if self.files and native.available() and not dataset.regression:
+            # the native decoder serves integer masks: float regression
+            # masks take the Python codec, and so do float images under the
+            # truncation quirk
             try:
                 info = tiff_codec.read_info(str(self.files[0]))
                 minfo = tiff_codec.read_info(str(get_mask_path(self.files[0])))
                 self._tile_shape = (info.height, info.width, info.bands)
                 self._tile_dtype, self._mask_dtype = info.dtype, minfo.dtype
-                self._native = True
+                self._native = not (dataset.reference_quirks and info.dtype.kind == "f")
             except (OSError, ValueError):
                 self._native = False
 

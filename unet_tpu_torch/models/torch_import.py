@@ -1,6 +1,18 @@
-"""Import a fastai-trained DynamicUnet: its ``state_dict`` → a model bundle.
+"""Import torch/fastai weights: a pretrained xresnet encoder, or a whole
+fastai-trained DynamicUnet as a model bundle.
 
-Counterpart of ``unet_tpu/models/torch_import.py``'s full-model import.
+Counterpart of ``unet_tpu/models/torch_import.py``.
+
+Pretrained encoders (the reference's ``pretrained=True``): a fastai
+``xresnet{18,34,50,101}`` ``state_dict`` saved with ``torch.save`` is
+converted (``convert_xresnet_state_dict``) and grafted into a U-Net's flax
+variables (``load_encoder``): every ``stem_*`` layer is lenient and keeps
+its fresh init where a shape differs (the multispectral first conv, and the
+whole tpu_opt folded stem), the residual stages graft strictly.
+``import_weights_cli`` writes the converted encoder as an ``.npz`` (keys
+``p/...``, ``s/...`` and ``__arch__``, the JAX package's layout, so one
+file serves both packages); ``load_encoder_any`` grafts from either file.
+
 The reference exports whole trained Learners; the torch-free migration
 path is one line on any machine that can load one::
 
@@ -87,6 +99,123 @@ def convert_xresnet_state_dict(sd: Dict[str, Any], arch: str = "xresnet34"
             params[name] = block
             stats[name] = bstat
     return params, stats
+
+
+def _copy_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """New dicts all the way down, the same leaves."""
+    return {k: _copy_tree(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def load_encoder(variables: Dict[str, Any], sd: Dict[str, Any],
+                 arch: str = "xresnet34") -> Dict[str, Any]:
+    """A copy of the U-Net's flax ``variables`` with the converted encoder
+    of the xresnet ``state_dict`` ``sd`` (numpy values) grafted in."""
+    enc_params, enc_stats = convert_xresnet_state_dict(sd, arch)
+    return _graft_encoder(_copy_tree(variables), enc_params, enc_stats)
+
+
+def _graft_encoder(new_vars: Dict[str, Any], enc_params: Dict[str, Any],
+                   enc_stats: Dict[str, Any]) -> Dict[str, Any]:
+    tgt_p = new_vars["params"]["encoder"]
+    tgt_s = new_vars["batch_stats"]["encoder"]
+    skipped = []
+    for name, block in enc_params.items():
+        # stem_* keeps its fresh init where a shape differs (stem_0 on the
+        # input channels, the whole tpu_opt folded stem); the stages are strict
+        lenient = name.startswith("stem_")
+        n_skip = _graft(tgt_p[name], block, allow_mismatch=lenient)
+        n_skip += _graft(tgt_s[name], enc_stats[name], allow_mismatch=lenient)
+        if n_skip:
+            skipped.append(name)
+    if skipped:
+        print(f"pretrained: kept fresh init for mismatched stem layers "
+              f"{skipped} (multispectral swap / tpu_opt folded stem); "
+              "residual stages grafted")
+    return new_vars
+
+
+def _graft(target: Dict, source: Dict, allow_mismatch: bool) -> int:
+    """Copy the source leaves into ``target`` in its dtypes; returns the
+    number skipped for a shape mismatch (raises unless ``allow_mismatch``)."""
+    skipped = 0
+    for k, v in source.items():
+        if isinstance(v, dict):
+            skipped += _graft(target[k], v, allow_mismatch)
+        elif np.shape(target[k]) != np.shape(v):
+            if not allow_mismatch:
+                raise ValueError(
+                    f"Shape mismatch for {k}: {np.shape(target[k])} vs {np.shape(v)}")
+            skipped += 1
+        else:
+            target[k] = np.asarray(v, dtype=np.asarray(target[k]).dtype)
+    return skipped
+
+
+def _flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def save_converted(path: str, params: Dict[str, Any], stats: Dict[str, Any],
+                   arch: str) -> None:
+    """Write converted encoder weights as an ``.npz`` archive."""
+    flat = {f"p/{k}": v for k, v in _flatten_tree(params).items()}
+    flat.update({f"s/{k}": v for k, v in _flatten_tree(stats).items()})
+    flat["__arch__"] = np.asarray(arch)
+    np.savez(path, **flat)
+
+
+def load_converted(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], str]:
+    """Read a converted ``.npz`` archive → (params, stats, arch)."""
+    with np.load(path) as z:
+        arch = str(z["__arch__"])
+        p = {k[2:]: z[k] for k in z.files if k.startswith("p/")}
+        s = {k[2:]: z[k] for k in z.files if k.startswith("s/")}
+    return _unflatten_tree(p), _unflatten_tree(s), arch
+
+
+def _load_state_dict(path: str) -> Dict[str, np.ndarray]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def load_encoder_any(variables: Dict[str, Any], path: str,
+                     arch: str = "xresnet34") -> Dict[str, Any]:
+    """Graft pretrained encoder weights from a torch ``state_dict``
+    (``.pth``/``.pt``) or a converted ``.npz`` (whose arch must be
+    ``arch``)."""
+    if str(path).endswith(".npz"):
+        enc_params, enc_stats, saved_arch = load_converted(path)
+        if saved_arch != arch:
+            raise ValueError(f"Converted weights are for {saved_arch}, model is {arch}")
+        return _graft_encoder(_copy_tree(variables), enc_params, enc_stats)
+    return load_encoder(variables, _load_state_dict(path), arch)
+
+
+def import_weights_cli(src: str, out: str, arch: str = "xresnet34") -> str:
+    """``python -m unet_tpu_torch import-weights``: ``.pth`` → ``.npz``."""
+    params, stats = convert_xresnet_state_dict(_load_state_dict(src), arch)
+    save_converted(out, params, stats, arch)
+    n = sum(v.size for v in _flatten_tree(params).values())
+    print(f"Converted {arch} encoder ({n / 1e6:.1f}M params) -> {out}")
+    return out
 
 
 def _infer_arch(enc_sd: Dict[str, Any]) -> str:
@@ -202,8 +331,7 @@ def import_model_cli(src: str, bundle_dir: str, description: Optional[str] = Non
     are written back from it, so the bundle holds exactly the tree the
     JAX package's importer writes."""
     dev = resolve_device(device)
-    sd = torch.load(src, map_location="cpu", weights_only=True)
-    params, stats, meta = convert_unet_state_dict({k: v.numpy() for k, v in sd.items()})
+    params, stats, meta = convert_unet_state_dict(_load_state_dict(src))
     model = build_unet(arch=meta["arch"], n_out=meta["n_out"], c_in=meta["c_in"],
                        self_attention=meta["self_attention"], tpu_opt=False).to(dev)
     weights = from_flax_variables({"params": params, "batch_stats": stats})

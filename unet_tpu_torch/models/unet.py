@@ -199,8 +199,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     convs and the PixelShuffle-ICNR convs (the four sub-kernels of each
     output channel equal), zero biases, BatchNorm scale 1 (0 for
     BatchZero), running stats 0/1, lecun-normal SelfAttention kernels, γ =
-    0 and unit-norm normal u vectors. For smoke runs and tests; trained
-    weights come from a bundle."""
+    0 and unit-norm normal u vectors. Every parameter and buffer is set, so
+    a trained model re-initialized equals a new one. For smoke runs and
+    tests; trained weights come from a bundle."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
     for mod in model.modules():
         if isinstance(mod, ConvTranspose2d):
             ni, nf = mod.weight.shape[:2]

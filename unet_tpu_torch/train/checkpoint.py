@@ -122,13 +122,14 @@ def _set(tree: Dict[str, Any], path, leaf, value) -> None:
 
 def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     """torch state_dict (tensors or numpy) → flax ``{'params',
-    'batch_stats'}`` tree of float32 numpy arrays."""
+    'batch_stats'}`` tree of float32 numpy arrays, copies that later
+    changes to the tensors leave alone."""
     bn_modules = {k.rsplit(".", 1)[0] for k in state_dict
                   if k.endswith(".running_mean")}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for key, v in state_dict.items():
-        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        a = v.detach().cpu().numpy().copy() if isinstance(v, torch.Tensor) else np.array(v)
         mod, _, name = key.rpartition(".")
         path = mod.split(".") if mod else []
         if mod in bn_modules:

@@ -1,36 +1,50 @@
 """The training engine: one-cycle fit of the U-Net on one device.
 
-Counterpart of ``unet_tpu/train/loop.py`` for its default path, in both
+Counterpart of ``unet_tpu/train/loop.py`` for one device, in both
 topologies (tpu_opt, the default, and parity, ``tpu_opt=False``; tiles
 whose sides are not divisible by 4 fall back to parity before the model
 is built, as the JAX trainer does), with or without self-attention:
 
-* a train step = uint8 tiles to the device → flip + scale
-  (``fused_flip_scale``) → bf16 forward in training mode (every BatchNorm
-  through the ``bn_stats`` kernels, every SelfAttention advancing its
-  power iteration) → class-weighted cross-entropy (or, with
-  ``loss_func="focal"``, the focal loss) on the folded logits (tpu_opt) or
-  the full-resolution ones (parity) → backward → fastai Adam
-  under the one-cycle schedule;
+* a train step = storage-dtype tiles to the device → augmentation
+  (``augment_batch``: rot90, then one ``flip_scale`` launch that flips
+  and scales, then the photometric passes) → per microbatch (``grad_accum``
+  equal slices of the batch): bf16 forward in training mode (every
+  BatchNorm through the ``bn_stats`` kernels at the microbatch's size,
+  its running statistics advancing microbatch by microbatch) → the loss on
+  the folded logits (tpu_opt) or the full-resolution ones (parity):
+  class-weighted cross-entropy, focal, dice, or for ``regression`` (one
+  output channel, float masks) MSE, L1 or smooth L1 on channel 0 →
+  backward, the gradients summed in float32; then their mean goes to the
+  fastai Adam under the one-cycle schedule, and the loss is the mean of
+  the microbatch losses;
 * validation after every epoch on full-resolution logits, with padded
-  samples masked out, and ``dice_multi`` over the epoch;
+  samples masked out: ``dice_multi``, or ``rmse`` and ``r2_score`` for
+  regression, over the epoch;
 * SaveModelCallback: the best epoch's weights (by ``monitor``) are kept and
   restored at the end;
-* a CSVLogger-schema history (epoch, train_loss, valid_loss, dice_multi,
+* a CSVLogger-schema history (epoch, train_loss, valid_loss, the metrics,
   time) with fastai's smoothed train loss (β = 0.98);
+* the LR finder (``lr_finder``: an exponential sweep on weights of its
+  own, then ``fit`` starts from fresh weights of the seed at the suggested
+  LR), transfer learning (``existing_model``: the bundle's topology and
+  weights) and pretrained encoders (``pretrained_weights``, ``.pth`` or
+  ``.npz``);
+* a phase timer always on, and with ``profile_dir`` a ``torch.profiler``
+  trace of the first epoch;
 * ``export`` writes the bundle ``unet_tpu`` reads: ``<desc>.json``, flax
-  msgpack weights, ``best-model.msgpack`` and ``<desc>_history.csv``.
+  msgpack weights, ``best-model.msgpack``, ``<desc>_history.csv``,
+  ``<desc>_profile.txt`` and, after a sweep, ``<desc>_lr_find.csv``.
 
-The LR finder, transfer learning and pretrained encoders, gradient
-accumulation, regression, resume and step checkpoints, multi-process
-training and profiling are not ported yet; ``TrainerConfig`` has no fields
-for them.
+Resume and step checkpoints, multi-process training, the plots and the
+model summary are not ported yet; ``TrainerConfig`` has no fields for
+them.
 """
 
 from __future__ import annotations
 
 import math
 import time
+import warnings
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
@@ -43,18 +57,18 @@ from ..data import (NOOP_AUGMENT, AugmentConfig, TileDataset, TileLoader,
                     resolve_class_weights)
 from ..models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
 from ..utils.device import resolve_device
+from ..utils.profiling import StepTimer, device_trace
 from . import checkpoint as ckpt
+from . import metrics as M
 from .losses import build_loss, fold_loss_layout
-from .metrics import dice_multi_init, dice_multi_update, dice_multi_value
-from .optimizer import OneCycleAdam
-
-MONITORS = ("dice_multi", "valid_loss", "train_loss")
+from .optimizer import OneCycleAdam, constant_lr_adam
+from .schedule import SUGGESTERS, lr_finder_lrs, suggest_lr
 
 
 @dataclass
 class TrainerConfig:
-    """The ported part of ``unet_tpu.train.loop.TrainerConfig``, plus the
-    ``device`` (default ``cuda``)."""
+    """The one-device part of ``unet_tpu.train.loop.TrainerConfig``, plus
+    the ``device`` (default ``cuda``)."""
 
     data_path: Union[str, Path] = "."
     model_path: Union[str, Path] = "."
@@ -64,33 +78,47 @@ class TrainerConfig:
     lr: float = 1e-4
     arch: str = "xresnet34"
     codes: Sequence[str] = ("background", "foreground")
+    regression: bool = False
     class_weights: Union[str, Sequence[float]] = "even"
     encoder_factor: float = 10.0
+    lr_finder: Optional[str] = None
     loss_func: Optional[str] = None
     monitor: Optional[str] = None
+    self_attention: bool = False
     valid_scenes: Sequence[str] = ("vali",)
     transforms: bool = True
     split_idx: Optional[int] = 0
     n_transform_imgs: float = 1.0
     aug: AugmentConfig = field(default_factory=AugmentConfig)
+    existing_model: Optional[str] = None
+    pretrained_weights: Optional[str] = None  # xresnet state_dict (.pth) or .npz
     info: str = ""
     class_zero: bool = False
     normalize: str = "reference"
-    bf16: bool = True
+    reference_quirks: bool = False
     tpu_opt: bool = True
-    self_attention: bool = False
+    bf16: bool = True
     seed: int = 0
     loader_threads: int = 8
+    # sequential microbatches a step: BatchNorm uses each microbatch's
+    # statistics, the gradients average; batch_size must divide evenly
+    grad_accum: int = 1
+    profile_dir: Optional[str] = None  # torch.profiler trace of the first epoch
     device: str = "cuda"
 
 
-def _monitor_defaults(monitor: Optional[str]) -> Tuple[str, Callable]:
-    """The monitored history column and its comparator (greater is better
-    for metrics, less for losses)."""
-    monitor = monitor or "dice_multi"
-    if monitor not in MONITORS:
-        raise ValueError(f"monitor {monitor!r} not in {MONITORS}")
-    return monitor, (np.less if monitor.endswith("_loss") else np.greater)
+def _monitor_defaults(monitor: Optional[str], regression: bool) -> Tuple[str, Callable]:
+    """The monitored history column and its comparator, as the JAX
+    trainer decides them: ``r2_score`` (regression) or ``dice_multi`` by
+    default; the losses are minimized, every other monitor maximized (an
+    unknown one with a warning)."""
+    if monitor is None:
+        monitor = "r2_score" if regression else "dice_multi"
+    if monitor in ("train_loss", "valid_loss"):
+        return monitor, np.less
+    if monitor not in ("r2_score", "dice_multi", "rmse"):
+        warnings.warn("Monitor not recognised. Assuming maximization.")
+    return monitor, np.greater
 
 
 def _fmt_time(seconds: float) -> str:
@@ -98,15 +126,32 @@ def _fmt_time(seconds: float) -> str:
     return f"{s // 60:02d}:{s % 60:02d}"
 
 
+LR_FIND_WINDOW = 10  # sweep losses fetched this many at a time, not a host sync a step
+
+
 class Trainer:
     def __init__(self, cfg: TrainerConfig):
+        if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide into "
+                             f"grad_accum={cfg.grad_accum} microbatches")
+        if cfg.existing_model:
+            # transfer learning: the bundle defines the architecture
+            m = ckpt.load_manifest(ckpt.bundle_paths(cfg.existing_model)[1])
+            adopted = {}
+            for field_name, key in (("arch", "ARCHITECTURE"), ("tpu_opt", "tpu_opt"),
+                                    ("self_attention", "self_attention")):
+                v = m.get(key)
+                if v is not None and getattr(cfg, field_name) != v:
+                    adopted[field_name] = v
+            if adopted:
+                print(f"existing_model: adopting bundle topology {adopted}")
+                cfg = replace(cfg, **adopted)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        if cfg.transforms and not cfg.aug.flips_only():
-            raise NotImplementedError(
-                f"augmentations other than flips ({cfg.aug.describe()}) are not yet ported")
         self.data_path = Path(cfg.data_path)
-        self.dataset = TileDataset(self.data_path, valid_scenes=cfg.valid_scenes)
+        self.dataset = TileDataset(self.data_path, valid_scenes=cfg.valid_scenes,
+                                   regression=cfg.regression,
+                                   reference_quirks=cfg.reference_quirks)
         self.dtype_str = get_datatype(self.data_path)
         self.train_loader = TileLoader(self.dataset, self.dataset.train_files,
                                        cfg.batch_size, shuffle=True, drop_last=True,
@@ -123,7 +168,7 @@ class Trainer:
         sample_img, _ = self.dataset.load_pair(self.dataset.train_files[0])
         self.c_in = sample_img.shape[0]
         self.tile_hw = sample_img.shape[1:]
-        self.n_out = len(cfg.codes)
+        self.n_out = 1 if cfg.regression else len(cfg.codes)
         if cfg.tpu_opt and (self.tile_hw[0] % 4 or self.tile_hw[1] % 4):
             # decided here, before the model is built, so the manifest
             # stamps the topology actually trained
@@ -136,17 +181,21 @@ class Trainer:
                                 self_attention=cfg.self_attention, tpu_opt=cfg.tpu_opt,
                                 dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
         self.class_weights = resolve_class_weights(cfg.class_weights, cfg.codes,
-                                                   self.data_path)
-        self.loss_fn = build_loss(cfg.loss_func, torch.tensor(
-            self.class_weights, dtype=torch.float32, device=self.device))
-        self.monitor, self.comp = _monitor_defaults(cfg.monitor)
+                                                   self.data_path, cfg.regression,
+                                                   reference_quirks=cfg.reference_quirks)
+        weight = None if cfg.regression else torch.tensor(
+            self.class_weights, dtype=torch.float32, device=self.device)
+        self.loss_fn = build_loss(cfg.loss_func, weight, regression=cfg.regression)
+        self.monitor, self.comp = _monitor_defaults(cfg.monitor, cfg.regression)
         self.aug_cfg = cfg.aug if cfg.transforms else NOOP_AUGMENT
         self.steps_per_epoch = len(self.train_loader)
         self.total_steps = self.steps_per_epoch * cfg.epochs
         self.history: List[Dict[str, Any]] = []
         self.optimizer: Optional[OneCycleAdam] = None
         self.best_state: Optional[Dict[str, torch.Tensor]] = None
-        self.generator = torch.Generator().manual_seed(cfg.seed + 1)  # flip flags
+        self.generator = torch.Generator().manual_seed(cfg.seed + 1)  # augmentation draws
+        self.timer = StepTimer()
+        self.lr_find_result: Optional[Dict[str, Any]] = None
         self._step_times: List[Any] = []  # per step: CUDA event pair or seconds
 
     def close(self) -> None:
@@ -155,20 +204,40 @@ class Trainer:
 
     # --- state ---------------------------------------------------------------
 
-    def init_state(self, variables: Optional[Dict[str, Any]] = None) -> None:
-        """Set the weights — a flax ``{'params', 'batch_stats'}`` tree when
-        given, else ``init_weights`` from the config's seed — and start a
-        fresh optimizer."""
+    def init_variables(self) -> Dict[str, Any]:
+        """The flax ``{'params', 'batch_stats'}`` tree a run starts from:
+        the existing model's weights, else ``init_weights`` from the
+        config's seed with the pretrained encoder grafted in."""
+        cfg = self.cfg
+        if cfg.existing_model:
+            return ckpt.load_weights(ckpt.bundle_paths(cfg.existing_model)[2])
         self.model.cpu()
+        init_weights(self.model, torch.Generator().manual_seed(cfg.seed))
+        variables = ckpt.to_flax_variables(self.model.state_dict())
+        if cfg.pretrained_weights:
+            from ..models.torch_import import load_encoder_any
+
+            variables = load_encoder_any(variables, cfg.pretrained_weights, cfg.arch)
+        return variables
+
+    def set_weights(self, variables: Optional[Dict[str, Any]] = None) -> None:
+        """Load a flax tree into the model (``init_variables()`` when none
+        is given) and move it to the device."""
         if variables is None:
-            init_weights(self.model, torch.Generator().manual_seed(self.cfg.seed))
-        else:
-            sd = ckpt.from_flax_variables(variables)
-            self.model.load_state_dict({k: torch.from_numpy(np.array(a, np.float32))
-                                        for k, a in sd.items()}, strict=True)
+            variables = self.init_variables()
+        self.model.cpu()
+        sd = ckpt.from_flax_variables(variables)
+        self.model.load_state_dict({k: torch.from_numpy(np.array(a, np.float32))
+                                    for k, a in sd.items()}, strict=True)
         self.model.to(self.device)
-        self.optimizer = OneCycleAdam(self.model.named_parameters(), self.cfg.lr,
-                                      self.total_steps,
+
+    def init_state(self, variables: Optional[Dict[str, Any]] = None,
+                   lr: Optional[float] = None) -> None:
+        """Set the weights (``set_weights``) and start a fresh one-cycle
+        optimizer at ``lr`` (default the config's)."""
+        self.set_weights(variables)
+        self.optimizer = OneCycleAdam(self.model.named_parameters(),
+                                      self.cfg.lr if lr is None else lr, self.total_steps,
                                       encoder_factor=self.cfg.encoder_factor)
 
     # --- steps -----------------------------------------------------------------
@@ -185,34 +254,56 @@ class Trainer:
         return augment_batch(images, masks, self.aug_cfg, generator,
                              n_transform_imgs=cfg.n_transform_imgs,
                              dtype_str=self.dtype_str, normalize=cfg.normalize,
-                             split=split, split_idx=cfg.split_idx, **kwargs)
+                             split=split, split_idx=cfg.split_idx,
+                             reference_quirks=cfg.reference_quirks, **kwargs)
+
+    def _preds(self, logits: torch.Tensor) -> torch.Tensor:
+        """What the loss takes: the logits, or for regression channel 0."""
+        return logits[:, 0] if self.cfg.regression else logits
 
     def loss_and_grads(self, images: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         """Training-mode forward on scaled float images, the loss on the
         logits (in the folded layout where the model returns sub-pixel
         logits, tpu_opt; as they are where it returns full-resolution ones,
-        parity), and its backward into the parameters' ``.grad``."""
+        parity), and its backward into the parameters' ``.grad``: per
+        microbatch under ``grad_accum``, the gradients summed and divided
+        by their count. Returns the mean loss."""
         self.model.train()
-        for p in self.model.parameters():
+        params = list(self.model.parameters())
+        for p in params:
             p.grad = None
-        logits = self.model(images, fold_logits=True)
-        if logits.shape[-1] != masks.shape[-1]:
-            logits, masks = fold_loss_layout(logits, masks)
-        loss = self.loss_fn(logits, masks)
-        loss.backward()
-        return loss.detach()
+        accum = max(1, self.cfg.grad_accum)
+        losses = []
+        for x, y in zip(images.chunk(accum), masks.chunk(accum)):
+            logits = self.model(x, fold_logits=True)
+            if logits.shape[-1] != y.shape[-1]:
+                logits, y = fold_loss_layout(logits, y)
+            loss = self.loss_fn(self._preds(logits), y)
+            loss.backward()
+            losses.append(loss.detach())
+        if accum == 1:
+            return losses[0]
+        with torch.no_grad():
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+        return torch.stack(losses).sum() / accum
 
-    def train_step(self, images: np.ndarray, masks: np.ndarray) -> torch.Tensor:
-        """One optimizer step on a host batch; returns the loss as a device
+    def train_step(self, images: np.ndarray, masks: np.ndarray,
+                   optimizer: Optional[OneCycleAdam] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """One optimizer step on a host batch (the trainer's optimizer and
+        augmentation draws unless given); returns the loss as a device
         scalar (not fetched, so steps queue without a host sync)."""
         if self.device.type == "cuda":
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
         else:
             t0 = time.perf_counter()
-        x, y = self.augment(*self.to_device(images, masks), "train", self.generator)
+        x, y = self.augment(*self.to_device(images, masks), "train",
+                            generator or self.generator)
         loss = self.loss_and_grads(x, y)
-        self.optimizer.step()
+        (optimizer or self.optimizer).step()
         if self.device.type == "cuda":
             end.record()
             self._step_times.append((start, end))
@@ -233,41 +324,66 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
         self.model.eval()
-        state = dice_multi_init(self.n_out, self.device)
+        regression = self.cfg.regression
+        state = (M.regression_init(self.device) if regression
+                 else M.dice_multi_init(self.n_out, self.device))
         losses: List[torch.Tensor] = []
         counts: List[int] = []
         generator = torch.Generator().manual_seed(self.cfg.seed + 7)
         for images, masks, n_valid in self.valid_loader:
             x, y = self.augment(*self.to_device(images, masks), "valid", generator)
             sample_mask = torch.arange(x.shape[0], device=self.device) < n_valid
-            logits = self.model(x)
-            losses.append(self.loss_fn(logits, y, sample_mask=sample_mask))
-            state = dice_multi_update(state, logits, y, sample_mask)
+            preds = self._preds(self.model(x))
+            losses.append(self.loss_fn(preds, y, sample_mask=sample_mask))
+            state = (M.regression_update if regression else M.dice_multi_update)(
+                state, preds, y, sample_mask)
             counts.append(n_valid)
         values = torch.stack(losses).cpu().tolist()
-        valid_loss = sum(v * n for v, n in zip(values, counts)) / max(sum(counts), 1)
-        return {"valid_loss": valid_loss, "dice_multi": float(dice_multi_value(state))}
+        out = {"valid_loss": sum(v * n for v, n in zip(values, counts)) / max(sum(counts), 1)}
+        if regression:
+            out.update(rmse=float(M.rmse_value(state)), r2_score=float(M.r2_value(state)))
+        else:
+            out["dice_multi"] = float(M.dice_multi_value(state))
+        return out
 
     # --- fit -----------------------------------------------------------------------
 
     def fit(self) -> List[Dict[str, Any]]:
+        """Train ``epochs`` epochs. With ``lr_finder`` the sweep runs first
+        and the run starts from fresh weights at the suggested LR; else from
+        the state ``init_state`` set (``init_state()`` when none is)."""
         cfg = self.cfg
-        if self.optimizer is None:
+        if cfg.lr_finder is not None:
+            lr = self.lr_find(cfg.lr_finder)
+            print(f"Optimized learning rate: {lr}")
+            self.init_state(lr=lr)
+        elif self.optimizer is None:
             self.init_state()
         best_metric = None
         smooth_loss, smooth_count, beta = 0.0, 0, 0.98  # fastai AvgSmoothLoss
         for epoch in range(cfg.epochs):
             t0 = time.monotonic()
-            losses = [self.train_step(images, masks)
-                      for images, masks, _ in self.train_loader]
-            for loss in torch.stack(losses).cpu().tolist():
-                if math.isfinite(loss):
-                    smooth_count += 1
-                    smooth_loss = beta * smooth_loss + (1 - beta) * loss
+            with device_trace(cfg.profile_dir if epoch == 0 else None, self.device,
+                              f"{cfg.description}_epoch0"):
+                losses = []
+                batches = iter(self.train_loader)
+                while True:
+                    with self.timer.phase("h2d"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    with self.timer.phase("train_step"):
+                        losses.append(self.train_step(*batch[:2]))
+            with self.timer.phase("loss_fetch"):
+                for loss in torch.stack(losses).cpu().tolist():
+                    if math.isfinite(loss):
+                        smooth_count += 1
+                        smooth_loss = beta * smooth_loss + (1 - beta) * loss
             row: Dict[str, Any] = {
                 "epoch": epoch,
                 "train_loss": smooth_loss / (1 - beta ** max(smooth_count, 1))}
-            row.update(self.evaluate())
+            with self.timer.phase("evaluate"):
+                row.update(self.evaluate())
             row["time"] = _fmt_time(time.monotonic() - t0)
             self.history.append(row)
             print("  ".join(f"{k}={v if isinstance(v, str) else round(v, 5)}"
@@ -280,6 +396,68 @@ class Trainer:
         if self.best_state is not None:  # SaveModelCallback: restore the best epoch
             self.model.load_state_dict(self.best_state)
         return self.history
+
+    # --- lr finder -------------------------------------------------------------------
+
+    def lr_find(self, method: str = "valley", num_it: int = 100,
+                start_lr: float = 1e-7, end_lr: float = 10.0) -> float:
+        """fastai lr_find: from ``init_variables()``, ``num_it`` steps of
+        the constant-schedule Adam with the LR rising exponentially from
+        ``start_lr`` to ``end_lr``, cycling the train loader; the losses
+        are fetched ``LR_FIND_WINDOW`` at a time, a non-finite one counts as
+        1e9, and the sweep stops once a loss exceeds 4× the best after 10.
+        All four suggestions are kept in ``lr_find_result``; the one of
+        ``method`` is returned. The sweep leaves the model's weights
+        changed: ``fit`` sets fresh ones after it."""
+        t0 = time.perf_counter()
+        n_timed = len(self._step_times)
+        self.set_weights()
+        ratio = end_lr / start_lr
+
+        def lr_fn(step: int) -> np.float32:  # float32, as the JAX package's schedule
+            pos = np.float32(min(step, num_it - 1)) / np.float32(max(num_it - 1, 1))
+            return np.float32(start_lr) * np.float32(ratio) ** pos
+
+        optimizer = constant_lr_adam(self.model.named_parameters(), lr_fn)
+        generator = torch.Generator().manual_seed(self.cfg.seed + 2)
+        losses: List[float] = []
+        window: List[torch.Tensor] = []
+        best = math.inf
+
+        def drain() -> bool:
+            """Fetch the window's losses at once; True if the sweep diverged."""
+            nonlocal best
+            values = torch.stack(window).cpu().tolist()
+            window.clear()
+            for v in values:
+                losses.append(v if math.isfinite(v) else 1e9)
+                best = min(best, losses[-1])
+                if losses[-1] > 4 * best and len(losses) > 10:  # fastai's stop
+                    return True
+            return False
+
+        it, diverged = 0, False
+        while it < num_it and not diverged:
+            for images, masks, _ in self.train_loader:
+                if it >= num_it:
+                    break
+                window.append(self.train_step(images, masks, optimizer, generator))
+                it += 1
+                if len(window) >= LR_FIND_WINDOW:
+                    diverged = drain()
+                    if diverged:
+                        break
+        if window and not diverged:
+            drain()
+        del self._step_times[n_timed:]  # step_ms() reports the fit's steps
+        lrs = lr_finder_lrs(start_lr, end_lr, num_it)[:len(losses)]
+        self.lr_find_result = {
+            "lrs": [float(v) for v in lrs], "losses": losses, "method": method,
+            "iterations": len(losses), "steps": it, "diverged": diverged,
+            "suggestions": {m: suggest_lr(lrs, losses, m) for m in SUGGESTERS},
+            "seconds": time.perf_counter() - t0}
+        self.lr_find_result["lr"] = suggest_lr(lrs, losses, method)
+        return self.lr_find_result["lr"]
 
     # --- export ----------------------------------------------------------------------
 
@@ -297,9 +475,9 @@ class Trainer:
             "aug_params_": self.aug_cfg.describe() if cfg.transforms else None,
             "BATCH_SIZE": cfg.batch_size,
             "EPOCHS": cfg.epochs,
-            "enable_regression": False,
+            "enable_regression": cfg.regression,
             "LEARNING_RATE": cfg.lr,
-            "LR_FINDER": None,
+            "LR_FINDER": cfg.lr_finder,
             "ENCODER_FACTOR": cfg.encoder_factor,
             "CLASS_WEIGHTS": cfg.class_weights if isinstance(cfg.class_weights, str)
             else list(cfg.class_weights),
@@ -337,6 +515,13 @@ class Trainer:
             lines = [",".join(cols)] + [",".join(str(r[c]) for c in cols)
                                         for r in self.history]
             (bundle_dir / f"{cfg.description}_history.csv").write_text("\n".join(lines) + "\n")
+        if self.timer.samples:
+            (bundle_dir / f"{cfg.description}_profile.txt").write_text(
+                self.timer.report() + "\n")
+        if self.lr_find_result:
+            r = self.lr_find_result
+            lines = ["lr,loss"] + [f"{lr!r},{loss!r}" for lr, loss in zip(r["lrs"], r["losses"])]
+            (bundle_dir / f"{cfg.description}_lr_find.csv").write_text("\n".join(lines) + "\n")
         return bundle_dir
 
 
@@ -346,7 +531,8 @@ def train_model(cfg: TrainerConfig, trainer: Optional[Trainer] = None) -> Path:
     trainer = trainer or Trainer(cfg)
     try:
         print(f"Train files: {trainer.dataset.n_train}, Test files: {trainer.dataset.n_valid}")
-        print(f"Class weights: {trainer.class_weights}")
+        if not trainer.cfg.regression:
+            print(f"Class weights: {trainer.class_weights}")
         trainer.fit()
         return trainer.export()
     finally:

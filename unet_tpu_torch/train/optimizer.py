@@ -1,7 +1,8 @@
 """fastai Adam with one-cycle hyper-parameters and discriminative LR groups.
 
-Counterpart of ``unet_tpu/train/optimizer.py``'s ``one_cycle_adam``,
-written by hand because ``torch.optim.Adam``/``AdamW`` is another
+Counterpart of ``unet_tpu/train/optimizer.py``'s ``one_cycle_adam`` and,
+with a schedule passed in, its ``constant_lr_adam`` (the LR finder's
+sweep: one LR group, b1 = 0.9), written by hand because ``torch.optim.Adam``/``AdamW`` is another
 algorithm. Its rules:
 
 * b1 follows the momentum cycle and ``debias1 = 1 − b1**count`` uses the
@@ -21,7 +22,7 @@ runs as PyTorch multi-tensor ops over one LR group at a time.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,15 +51,20 @@ def param_group_label(name: str) -> int:
 class OneCycleAdam:
     """The reference's training optimizer over ``named_params`` (name,
     float32 parameter) pairs. ``step()`` applies one update from the
-    parameters' ``.grad``."""
+    parameters' ``.grad``. ``schedule`` = (lr_fn, mom_fn), each a function
+    of the step giving a float32, replaces the one-cycle curves
+    (``constant_lr_adam``)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
-                 lr: float, total_steps: int, encoder_factor: float = 10.0):
+                 lr: float, total_steps: int, encoder_factor: float = 10.0,
+                 schedule: Optional[Tuple[Callable, Callable]] = None):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        self.lr_fn = one_cycle_lr(lr, total_steps, PCT_START, DIV, DIV_FINAL)
-        self.mom_fn = one_cycle_momentum(total_steps, MOMS, PCT_START)
+        if schedule is None:
+            schedule = (one_cycle_lr(lr, total_steps, PCT_START, DIV, DIV_FINAL),
+                        one_cycle_momentum(total_steps, MOMS, PCT_START))
+        self.lr_fn, self.mom_fn = schedule
         group_lr_maxes = discriminative_lrs(lr, encoder_factor, N_GROUPS)
         self.scales = [float(group_lr_maxes[param_group_label(n)]) / float(lr)
                        for n in self.names]
@@ -104,3 +110,11 @@ class OneCycleAdam:
             if decay:
                 torch._foreach_sub_(delta, torch._foreach_mul(params, float(leaf_lr * np.float32(WD))))
             torch._foreach_add_(params, delta)
+
+
+def constant_lr_adam(named_params: Iterable[Tuple[str, torch.Tensor]],
+                     lr_fn: Callable[[int], float], mom: float = 0.9) -> OneCycleAdam:
+    """The LR finder's optimizer: the same Adam, one LR group (every scale
+    1), b1 fixed at ``mom`` and the LR ``lr_fn(step)``."""
+    return OneCycleAdam(named_params, 1.0, 1, encoder_factor=1.0,
+                        schedule=(lr_fn, lambda step: mom))
