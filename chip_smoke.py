@@ -139,6 +139,31 @@ Phases (any failure raises and the script exits nonzero), in this order:
      focal, float32, ``save_predictions(merge=True)``): parity at 14
      epochs and tpu_opt at 20 on seeds 0 and 1 held to the JAX floors,
      seed 2 measured against them, then tpu_opt seed 0 in bf16, printed;
+     9d. the reference's own entry point, resume and data parallelism at
+     full width (xresnet34 tpu_opt, 3 classes, 512² tiles, bf16, batch 16,
+     the 4096² scene and its labels): (a) ``python -m unet_tpu_torch run``
+     of a JSON ``Params`` file with Create_tiles, Train (2 epochs, a
+     checkpoint each, the model summary) and Predict (9b's prediction tiles
+     merged on the host) in a subprocess, its tile tree byte-equal to 9b's
+     and its mosaic checked, then the same ``Params`` through ``api.main``
+     in this process with every launch count at 0 (43 × steps for each
+     bn_stats kernel, one flip_scale a step and a validation batch, no
+     blend_count); a config with ``visualize_data_example`` exits nonzero
+     before any tile is written; (b) a 3-epoch ``run`` killed (SIGKILL)
+     once ``checkpoints/1`` is complete, then resumed (``resume``): its
+     history holds epochs 1-2 and its bundle serves the scene; a
+     saved-then-restored state bit-equal; (c) two ranks on the one card
+     over gloo, 8 tiles each of a batch of 16: (43, 43, 1) launches a rank
+     and step, the float32 2-rank step (TF32 off) held against the same
+     synchronized step through the plain versions and against one
+     process's step on the same 16 tiles (the bars of 8), the bf16 one
+     printed, the ranks' weights bit-equal after 3 steps and each rank's
+     step ms printed (two ranks sharing one card: not a scaling figure);
+     two ranks on one card under NCCL refused, naming gloo; ``train
+     --coordinator --num-processes 2 --process-id i`` with
+     ``UNET_TPU_TORCH_BACKEND=gloo`` for 1 epoch, one bundle, rank 0's
+     launches; (d) ``doctor``'s mesh check (NCCL, world 1); offset_copy's
+     launches over the phase counted; the phase's seconds;
   10. last, as the profiler slows later launches: the device time of every
      kernel, its plain version and its library call at the shapes above
      (the union of the traced device intervals, host overhead left out;
@@ -171,6 +196,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2370,6 +2396,421 @@ def train_surface_phase(dev, tmp: Path, tiles: Path, bundle: Path, scene: Path) 
     return out
 
 
+RUN_EPOCHS = 2        # phase 9d: `run` trains 2 epochs with a checkpoint each
+RESUME_EPOCHS = 3     # the run killed after its first checkpoint, then resumed
+DDP_WORLD = 2         # two ranks on the one card, over gloo
+DDP_STEPS = 3         # optimizer steps after which the ranks' weights are compared
+RUN_CODES = ["background", "road", "field"]
+
+
+def tile_tree(base: Path) -> dict:
+    """{relative path: bytes} of every tile under ``base``."""
+    return {str(f.relative_to(base)): f.read_bytes() for f in sorted(base.glob("*/*/*.tif"))}
+
+
+def run_config(tmp: Path, base_dir: Path, pred_tiles: Path, desc: str, **kw) -> Path:
+    """A JSON ``Params`` file for ``python -m unet_tpu_torch run``: the
+    scene and its labels tiled as phase 9b tiles them (512², overlap 0.2,
+    split 0.8 / 0.2, seed 0; the gate's max_empty 0.9), the flagship
+    (the gate's xresnet34, tpu_opt and bf16 by default) trained on them
+    with a checkpoint an epoch and the model summary, and 9b's prediction
+    tiles predicted and merged on the host."""
+    cfg = dict(Create_tiles=True, Train=True, Predict=True,
+               image_path=str(tmp / "scene.tif"), mask_path=str(tmp / "mask.tif"),
+               base_dir=str(base_dir), patch_size=PATCH, patch_overlap=0.2, split=[0.8, 0.2],
+               data_path=str(base_dir), model_path=str(tmp / "run_models"), description=desc,
+               BATCH_SIZE=BATCH, EPOCHS=RUN_EPOCHS, LEARNING_RATE=1e-3, CODES=RUN_CODES,
+               checkpoint_every=1, export_model_summary=True, visualize_data_example=False,
+               validation_vision=False, enable_extra_parameters=False,
+               predict_path=str(pred_tiles), predict_model=str(tmp / "run_models" / desc),
+               AOI="R", year="2026", merge=True, seed=SEED)
+    cfg.update(kw)
+    path = tmp / f"{desc}.json"
+    path.write_text(json.dumps(cfg, indent=1))
+    return path
+
+
+def history_epochs(bundle: Path) -> list:
+    lines = (bundle / f"{bundle.name}_history.csv").read_text().splitlines()
+    return [int(line.split(",")[0]) for line in lines[1:]]
+
+
+def run_phase(tmp: Path, tiled: dict, transform, crs) -> dict:
+    """(a) ``python -m unet_tpu_torch run`` with the three stages in a
+    subprocess (tile tree byte-equal to 9b's, the bundle, the summary and
+    two checkpoints, the mosaic), then the same ``Params`` through
+    ``api.main`` in this process with every launch count at 0; a config
+    with ``visualize_data_example`` refused before any tile is written.
+    (b) A ``run`` of RESUME_EPOCHS epochs killed once ``checkpoints/1`` is
+    complete, then resumed: its history holds epochs 1.., and its bundle
+    serves the scene; a saved-then-restored state bit-equal in this
+    process."""
+    from unet_tpu_torch import api
+    from unet_tpu_torch.ops import aug, blend, bn
+    from unet_tpu_torch.train import checkpoint as ckpt
+    from unet_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    out = {}
+    t0 = time.perf_counter()
+    refused = tmp / "refused_tiles"
+    vis = run_config(tmp, refused, tiled["pred"], "refused", visualize_data_example=True)
+    vis_proc = subprocess.Popen([sys.executable, "-m", "unet_tpu_torch", "run", str(vis)],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+    base = tmp / "run_tiles"
+    cfg_path = run_config(tmp, base, tiled["pred"], "run")
+    secs, _ = run_cli(["run", cfg_path], "run", quiet=True)
+    _, vis_err = vis_proc.communicate(timeout=300)
+    if vis_proc.returncode == 0 or refused.exists() or "visualize_data_example" not in vis_err:
+        raise AssertionError(f"visualize_data_example: exit {vis_proc.returncode}, tiles "
+                             f"{refused.exists()}, stderr {vis_err[-500:]}")
+    if tile_tree(base) != tile_tree(tiled["pipe"]):
+        raise AssertionError("run's tile tree differs from the tile CLI's")
+    bundle = tmp / "run_models" / "run"
+    for name in ("run.json", "run.msgpack", "best-model.msgpack", "run_history.csv",
+                 "run_model_summary.txt"):
+        if not (bundle / name).is_file():
+            raise AssertionError(f"run's bundle lacks {name}")
+    if ckpt.checkpoint_epochs(bundle / "checkpoints") != [1, 2]:
+        raise AssertionError(f"checkpoints {ckpt.checkpoint_epochs(bundle / 'checkpoints')}")
+    mosaic = tiled["pred"].parent / "R_2026_run_prediction.tif"
+    classes = check_class_map(mosaic, transform, crs)
+    summary = (bundle / "run_model_summary.txt").read_text().split("\n\n")[0]
+    print(f"run (Create_tiles, Train, Predict) through the CLI: {secs:.1f} s with process "
+          f"start; tile tree byte-equal to 9b's ({len(tile_tree(base))} files); history "
+          f"epochs {history_epochs(bundle)}; checkpoints [1, 2]; mosaic classes {classes}; "
+          f"visualize_data_example refused before any tile (exit {vis_proc.returncode}); "
+          "summary: " + summary.replace("\n", " | "))
+    out["cli_s"] = secs
+    shutil.rmtree(bundle / "checkpoints")  # about 0.4 GB each: free the disk as we go
+
+    # the same Params in this process, every launch count at 0
+    p = api.params_from_json(cfg_path)
+    p.base_dir = p.data_path = str(tmp / "main_tiles")
+    p.description, p.predict_model = "main", str(tmp / "run_models" / "main")
+    counters = {"bn_sum_sumsq": bn.bn_sum_sumsq, "bn_bwd_sums": bn.bn_bwd_sums,
+                "flip_scale": aug.fused_flip_scale, "blend_count": blend.blend_and_count}
+    for f in counters.values():
+        f.launches = 0
+    t1 = time.perf_counter()
+    with quiet_stdout(tmp / "main_stdout.txt"):
+        api.main(p)
+    main_s = time.perf_counter() - t1
+    launches = {k: f.launches for k, f in counters.items()}
+    steps = RUN_EPOCHS * (tiled["split"]["trai"] // BATCH)
+    evals = RUN_EPOCHS * -(-tiled["split"]["vali"] // BATCH)
+    want = {"bn_sum_sumsq": 43 * steps, "bn_bwd_sums": 43 * steps,
+            "flip_scale": steps + evals, "blend_count": 0}
+    if launches != want:
+        raise AssertionError(f"api.main launches {launches}, expected {want}")
+    check_class_map(tiled["pred"].parent / "R_2026_main_prediction.tif", transform, crs)
+    shutil.rmtree(tmp / "run_models" / "main" / "checkpoints")
+    print(f"api.main in process: {main_s:.1f} s; {steps} steps + {evals} validation batches; "
+          f"launches {launches} (the host merge launches no blend_count)")
+    out.update(main_launches=launches, main_s=main_s, steps=steps)
+
+    # (b) killed after its first checkpoint, then resumed
+    killed = run_config(tmp, base, tiled["pred"], "resumed", Create_tiles=False, Predict=False,
+                        EPOCHS=RESUME_EPOCHS)
+    rbundle = tmp / "run_models" / "resumed"
+    first = rbundle / "checkpoints" / "1" / ckpt.CHECKPOINT_FILE
+    t1 = time.perf_counter()
+    killed_log = open(tmp / "killed_run.txt", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "unet_tpu_torch", "run", str(killed)],
+                            cwd=ROOT, stdout=killed_log, stderr=subprocess.STDOUT)
+    try:
+        while not first.is_file():
+            if proc.poll() is not None:
+                killed_log.close()
+                log((tmp / "killed_run.txt").read_text()[-4000:])
+                raise RuntimeError(f"the run to be killed exited {proc.returncode} first")
+            if time.perf_counter() - t1 > 600:
+                raise RuntimeError("no first checkpoint within 600 s")
+            time.sleep(0.02)
+        proc.kill()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(60)
+        killed_log.close()
+    killed_at = time.perf_counter() - t1
+    latest = ckpt.latest_checkpoint(rbundle / "checkpoints")
+    if latest != 1:
+        raise AssertionError(f"the killed run left checkpoint {latest}, expected 1")
+    resume_cfg = json.loads(killed.read_text())
+    resume_cfg["resume"] = True
+    killed.write_text(json.dumps(resume_cfg))
+    rsecs, rout = run_cli(["run", killed], "resumed run", quiet=True)
+    if "Resumed from epoch 1" not in rout or history_epochs(rbundle) != [1, 2]:
+        raise AssertionError(f"resumed run: history epochs {history_epochs(rbundle)}")
+    serve_inprocess(rbundle, tmp / "scene.tif", tmp / "resumed.tif")
+    rclasses = check_class_map(tmp / "resumed.tif", transform, crs)
+
+    # a saved-then-restored state, bit for bit
+    tcfg = TrainerConfig(data_path=base, model_path=tmp / "run_models", description="state",
+                         codes=RUN_CODES, arch="xresnet34", batch_size=BATCH, epochs=1,
+                         lr=1e-3, seed=SEED)
+    t = Trainer(tcfg)
+    t2 = Trainer(tcfg)
+    try:
+        t.init_state()
+        t.train_step(*next(iter(t.train_loader))[:2])
+        ckpt.save_checkpoint(t.checkpoint_dir(), 1, t.checkpoint_state(1))
+        t2.init_state()
+        t2.restore_checkpoint(ckpt.load_checkpoint(t2.checkpoint_dir(), 1))
+        same = all(torch.equal(a, b) for a, b in zip(t.model.state_dict().values(),
+                                                      t2.model.state_dict().values()))
+        same &= all(torch.equal(a, b) for a, b in zip(t.optimizer.mu + t.optimizer.nu,
+                                                      t2.optimizer.mu + t2.optimizer.nu))
+        same &= t.optimizer.count == t2.optimizer.count == 1
+    finally:
+        t.close()
+        t2.close()
+    shutil.rmtree(rbundle / "checkpoints")
+    shutil.rmtree(tmp / "run_models" / "state")
+    if not same:
+        raise AssertionError("the restored state differs from the saved one")
+    print(f"resume: a {RESUME_EPOCHS}-epoch run killed {killed_at:.1f} s after its start, "
+          f"once checkpoints/1 was complete (latest checkpoint {latest}); resumed through "
+          f"run in {rsecs:.1f} s, history epochs {history_epochs(rbundle)}; its bundle served "
+          f"the scene, classes {rclasses}; a saved-then-restored state (weights, running "
+          "statistics, Adam's moments, step) bit-equal")
+    out.update(resume_s=rsecs, seconds=time.perf_counter() - t0)
+    return out
+
+
+def ddp_config(tiles: Path, tmp: Path, bf16: bool, batch: int):
+    from unet_tpu_torch.train.loop import TrainerConfig
+
+    return TrainerConfig(data_path=tiles, model_path=tmp / "ddp_models", description="ddp",
+                         codes=RUN_CODES, arch="xresnet34", batch_size=batch, epochs=1,
+                         lr=1e-3, seed=SEED, bf16=bf16)
+
+
+def ddp_step(trainer) -> dict:
+    """One step's loss, gradients and launches from the trainer's first
+    batch (this rank's share under a process group), the augmentation drawn
+    from a fixed generator."""
+    from unet_tpu_torch.ops import aug, bn
+
+    counters = (bn.bn_sum_sumsq, bn.bn_bwd_sums, aug.fused_flip_scale)
+    host = next(iter(trainer.train_loader))[:2]
+    for f in counters:
+        f.launches = 0
+    x, y = trainer.augment(*trainer.to_device(*host), "train", torch.Generator().manual_seed(5))
+    loss = trainer.loss_and_grads(x, y).item()
+    return {"loss": loss, "launches": tuple(f.launches for f in counters),
+            "grads": {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()},
+            "host": host}
+
+
+def ddp_rank(rank: int, port: int, tiles: Path, tmp: Path, batch: int) -> None:
+    """One of two ranks on the one card (gloo): a float32 step (TF32 off),
+    held against the same synchronized step through the plain bn_stats and
+    flip_scale (``step_check``), and a bf16 step on its share of the first
+    batch, then DDP_STEPS optimizer steps in bf16; results to
+    ``ddp_rank<r>.pt``."""
+    from unet_tpu_torch.parallel import mesh
+    from unet_tpu_torch.train.loop import Trainer
+
+    res = {}
+    try:
+        mesh.init_distributed(f"127.0.0.1:{port}", DDP_WORLD, rank, backend="gloo",
+                              device="cuda")
+        for bf16 in (False, True):
+            with contextlib.nullcontext() if bf16 else tf32_off():
+                t = Trainer(ddp_config(tiles, tmp, bf16, batch))
+                try:
+                    t.init_state()
+                    r = ddp_step(t)
+                    if not bf16:  # the kernels against plain on the 2-rank path
+                        r["vs_plain"] = step_check(t, r["host"], f"rank {rank} of "
+                                                   f"{DDP_WORLD} (gloo, one card), float32")
+                    if bf16:
+                        host = r["host"]
+                        for _ in range(DDP_STEPS):
+                            t.train_step(*host)
+                        r["step_ms"] = t.step_ms()
+                        r["weights"] = {k: v.cpu() for k, v in t.model.state_dict().items()}
+                        r["world"] = mesh.data_size()
+                    del r["host"]
+                    res["bf16" if bf16 else "fp32"] = r
+                finally:
+                    t.close()
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        mesh.close_distributed()
+        torch.save(res, tmp / f"ddp_rank{rank}.pt")
+
+
+def grad_errors(got: dict, want: dict) -> tuple:
+    """(worst, median) per-tensor relative L2 error of ``got`` against
+    ``want``, against at least GRAD_FLOOR of the RMS of all gradients."""
+    sq = sum(float(w.pow(2).sum()) for w in want.values())
+    g_rms = (sq / sum(w.numel() for w in want.values())) ** 0.5
+    rel = sorted((float((got[k] - w).norm()) / max(float(w.norm()),
+                                                    GRAD_FLOOR * g_rms * w.numel() ** 0.5), k)
+                 for k, w in want.items())
+    return rel[-1], float(np.median([r for r, _ in rel]))
+
+
+def ddp_phase(tmp: Path, tiles: Path) -> dict:
+    """(c) Two ranks on the one card over gloo, a global batch of BATCH
+    with BATCH / 2 a rank: per rank (43, 43, 1) launches a step; the
+    2-rank float32 step (TF32 off) against the same step through the plain
+    versions and against one process's step on the same BATCH tiles (loss
+    1e-3 relative, gradients GRAD_REL_L2 with the GRAD_FLOOR floor), the
+    bf16 one printed; after DDP_STEPS steps the ranks' weights bit-equal;
+    each rank's step ms. Two ranks on one card under NCCL raise. Then
+    ``train --coordinator --num-processes 2 --process-id i`` through the
+    CLI for 1 epoch, gloo asked for through UNET_TPU_TORCH_BACKEND: only
+    rank 0 writes a bundle."""
+    import multiprocessing
+
+    from unet_tpu_torch.parallel import mesh
+    from unet_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    one = {}
+    for bf16 in (False, True):
+        with contextlib.nullcontext() if bf16 else tf32_off():
+            t = Trainer(ddp_config(tiles, tmp, bf16, BATCH))
+            try:
+                t.init_state()
+                one["bf16" if bf16 else "fp32"] = ddp_step(t)
+            finally:
+                t.close()
+    ctx = multiprocessing.get_context("spawn")
+    port = mesh.free_port()
+    procs = [ctx.Process(target=ddp_rank, args=(r, port, tiles, tmp, BATCH))
+             for r in range(DDP_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    if alive:
+        raise RuntimeError(f"ranks {alive} did not finish")
+    ranks = [torch.load(tmp / f"ddp_rank{r}.pt", weights_only=False) for r in range(DDP_WORLD)]
+    for r in range(DDP_WORLD):
+        (tmp / f"ddp_rank{r}.pt").unlink()
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            log(res["error"])
+            raise RuntimeError(f"rank {r} failed")
+    out = {"launches": [], "step_ms": [],
+           "vs_plain": [ranks[r]["fp32"]["vs_plain"] for r in range(DDP_WORLD)]}
+    for key, hold in (("fp32", True), ("bf16", False)):
+        r0, r1 = ranks[0][key], ranks[1][key]
+        if r0["loss"] != r1["loss"] or any(not torch.equal(r0["grads"][k], r1["grads"][k])
+                                           for k in r0["grads"]):
+            raise AssertionError(f"{key}: the ranks' reduced gradients differ")
+        for r in (r0, r1):
+            if r["launches"] != (43, 43, 1):
+                raise AssertionError(f"{key}: a rank's step launched {r['launches']}")
+        loss_rel = abs(r0["loss"] - one[key]["loss"]) / abs(one[key]["loss"])
+        (worst, name), median = grad_errors(r0["grads"], one[key]["grads"])
+        print(f"2 ranks (gloo, one card) vs 1 process, {key} step on the same {BATCH} tiles"
+              f"{', TF32 off' if key == 'fp32' else ''}: loss {r0['loss']:.6f} vs "
+              f"{one[key]['loss']:.6f} (rel {loss_rel:.2e}); gradients per tensor median "
+              f"{median:.2e}, worst {worst:.2e} ({name}); launches per rank {r0['launches']}"
+              + ("" if hold else " (printed, not held)"))
+        if hold and (loss_rel > 1e-3 or worst > GRAD_REL_L2):
+            raise AssertionError(f"{key}: the 2-rank step disagrees with one process's")
+        out[f"{key}_loss_rel"], out[f"{key}_grad_worst"] = loss_rel, worst
+    print("2 ranks (gloo, one card), float32 synchronized step with the kernels vs with "
+          "their plain versions (bn_stats, flip_scale), held to the bars above: "
+          + "; ".join(f"rank {r} loss rel {lr:.2e}, worst gradient {w:.2e}"
+                      for r, (lr, w) in enumerate(out["vs_plain"])))
+    w0, w1 = ranks[0]["bf16"]["weights"], ranks[1]["bf16"]["weights"]
+    if any(not torch.equal(w0[k], w1[k]) for k in w0):
+        raise AssertionError(f"after {DDP_STEPS} steps the ranks' weights differ")
+    for r, res in enumerate(ranks):
+        ms = res["bf16"]["step_ms"]
+        out["step_ms"].append(float(np.median(ms[1:])))
+        out["launches"].append(res["bf16"]["launches"])
+        print(f"rank {r} of 2 sharing one card (gloo reduces CUDA tensors through host "
+              f"copies; not a scaling figure): bf16 step of {BATCH // DDP_WORLD} tiles "
+              f"{out['step_ms'][-1]:.1f} ms median after the first "
+              f"({', '.join(f'{m:.1f}' for m in ms)} ms)")
+    print(f"after {DDP_STEPS} bf16 steps the ranks' weights and running statistics are "
+          "bit-equal")
+
+    # NCCL refuses two ranks on one card: the port raises, naming gloo,
+    # before it forms a group, and the CLI below asks for gloo
+    try:
+        mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", DDP_WORLD, 0, device="cuda")
+    except ValueError as e:
+        if "gloo" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError("two ranks on one card under NCCL were not refused")
+
+    # the CLI, two processes
+    port = mesh.free_port()
+    cmd = [sys.executable, "-m", "unet_tpu_torch", "train", str(tiles), "--model-path",
+           str(tmp / "ddp_cli"), "--description", "ddp", "--codes", *RUN_CODES, "--arch",
+           "xresnet34", "--batch-size", str(BATCH), "--epochs", "1", "--lr", "1e-3", "--seed",
+           str(SEED), "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+           str(DDP_WORLD)]
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r), "--stats-json",
+                                     str(tmp / f"ddp_cli_{r}.json")],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env={**os.environ, "UNET_TPU_TRACEBACK": "1",
+                                              mesh.BACKEND_ENV: "gloo"})
+             for r in range(DDP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    cli_s = time.perf_counter() - t1
+    if [p.returncode for p in procs] != [0] * DDP_WORLD:
+        log("\n".join(outs))
+        raise RuntimeError(f"train over 2 processes exited {[p.returncode for p in procs]}")
+    if not (tmp / "ddp_cli" / "ddp" / "ddp.msgpack").is_file() or \
+            (tmp / "ddp_cli_1.json").exists() or "Model bundle exported" in outs[1]:
+        raise AssertionError("train over 2 processes: rank 0 alone must write the bundle")
+    st = json.loads((tmp / "ddp_cli_0.json").read_text())
+    steps = st["steps"]
+    evals = -(-len(list((tiles / "vali" / "img_tiles").glob("*.tif"))) // BATCH)
+    want = {"bn_sum_sumsq": 43 * steps, "bn_bwd_sums": 43 * steps, "flip_scale": steps + evals}
+    if st["launches"] != want:
+        raise AssertionError(f"rank 0 of the CLI launched {st['launches']}, expected {want}")
+    print(f"train --coordinator --num-processes 2 through the CLI: {cli_s:.1f} s with process "
+          f"start; {steps} steps of {BATCH // DDP_WORLD} tiles a rank; rank 0 launches "
+          f"{st['launches']}; history {st['history'][0]['dice_multi']:.4f} dice; one bundle "
+          f"(rank 0's), over gloo ({mesh.BACKEND_ENV}=gloo); without it: {refusal}")
+    out.update(cli_launches=st["launches"], cli_s=cli_s, seconds=time.perf_counter() - t0)
+    return out
+
+
+def mesh_doctor_phase() -> dict:
+    """(d) ``doctor``'s mesh check on the card: NCCL, world 1, ok."""
+    from unet_tpu_torch.utils.doctor import run_doctor
+
+    results = run_doctor()
+    ok, detail = results["mesh"]
+    if not (ok and "world of 1" in detail and "backend nccl" in detail):
+        raise AssertionError(f"doctor's mesh check: {results['mesh']}")
+    if not all(ok for ok, _ in results.values()):
+        raise AssertionError(f"doctor: {results}")
+    return {"mesh": detail}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2637,6 +3078,21 @@ def main() -> int:
         # 9c. the quality gate on the card
         gate = gate_phase(tmp)
 
+        log(f"-- phase 9d at {time.perf_counter() - t_start:.1f} s")
+        # 9d. the reference's own entry point (run, api.main), resume after
+        # a kill, two ranks on the one card, doctor's mesh check
+        t9d = time.perf_counter()
+        from unet_tpu_torch.ops import probe
+
+        probe.offset_copy.launches = 0
+        run9 = run_phase(tmp, tiled, transform, crs)
+        ddp = ddp_phase(tmp, tmp / "run_tiles")
+        mesh_d = mesh_doctor_phase()
+        run9["offset_copy_launches"] = probe.offset_copy.launches
+        print(f"phase 9d: {time.perf_counter() - t9d:.1f} s (run and resume "
+              f"{run9['seconds']:.1f} s, two ranks {ddp['seconds']:.1f} s); doctor's mesh "
+              f"check: {mesh_d['mesh']}")
+
         log(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
         # 10. under torch.profiler, after every kernel timing (the profiler
         # slows later launches): each kernel's device time, then the card's
@@ -2774,6 +3230,20 @@ def main() -> int:
                        "regression_lr_finder_cli": reg_cli["flip_scale"]},
         "offset_copy": {"train_surface": 0},
     }
+    run_resume_ddp = {  # each kernel's launches in phase 9d, counts set to 0 before each
+        "blend_count": {"run_main": run9["main_launches"]["blend_count"]},
+        **{k: {"run_main": run9["main_launches"][k],
+               "ddp_rank_step": [lc[i] for lc in ddp["launches"]],
+               "ddp_cli_rank0": ddp["cli_launches"][k],
+               "ddp_rank_step_ms": ddp["step_ms"],
+               "ddp_fp32_vs_plain": ddp["vs_plain"]}
+           for i, k in enumerate(("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"))},
+        "offset_copy": {"run_resume_ddp": run9["offset_copy_launches"]},
+    }
+    for kname in ("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"):
+        n = run_resume_ddp[kname]
+        if n["run_main"] <= 0 or min(n["ddp_rank_step"]) <= 0 or n["ddp_cli_rank0"] <= 0:
+            raise AssertionError(f"{kname} was not launched on a path of phase 9d: {n}")
     for kname, n in pipeline.items():
         path_counts = [v for k, v in n.items() if k in ("predict_device_merge", "pipeline_train")]
         if any(c <= 0 for c in path_counts):
@@ -2811,7 +3281,7 @@ def main() -> int:
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
          "pipeline": pipeline[kname], "any_size": any_size[kname],
-         "train_surface": train_surface[kname]}
+         "train_surface": train_surface[kname], "run_resume_ddp": run_resume_ddp[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

@@ -665,3 +665,88 @@ def test_capability_check_all_ok(dev):
     results = probe.capability_check()
     assert set(results) == set(probe.CHECKS)
     assert all(ok for ok, _ in results.values()), results
+
+
+def _sync_bn_rank(rank, port, x, dy, out):
+    """One of two gloo ranks on the card: a training BatchNorm over its half
+    of ``x`` with the group set, through the kernels and through the plain
+    reductions; the gradients of scale and bias summed over the ranks."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import bn
+    from unet_tpu_torch.parallel import mesh
+
+    res = {}
+    try:
+        mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+        dev = torch.device("cuda")
+        half = x.shape[0] // 2
+        xs, dys = x[rank * half:(rank + 1) * half].to(dev), dy[rank * half:(rank + 1) * half].to(dev)
+        for name, red in (("kernel", bn.KERNEL_REDUCTIONS), ("plain", bn.PLAIN_REDUCTIONS)):
+            m = BatchNorm(x.shape[1]).to(dev).train()
+            m.reductions, m.group = red, mesh.data_group()
+            xi = xs.clone().requires_grad_(True)
+            before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+            y = m(xi)
+            (y.float() * dys).sum().backward()
+            launched = (bn.bn_sum_sumsq.launches - before[0], bn.bn_bwd_sums.launches - before[1])
+            g = torch.stack([m.weight.grad, m.bias.grad])
+            dist.all_reduce(g)
+            res[name] = [t.detach().float().cpu() for t in (y, xi.grad, g, m.running_mean,
+                                                              m.running_var)] + [launched]
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        mesh.close_distributed()
+        torch.save(res, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_synchronized_batch_norm_kernels_against_plain_over_two_ranks(dev, dtype, tmp_path):
+    """Two gloo ranks on one card, each with half of a (16, 64, 32, 32)
+    batch: forward and backward launch one kernel each a rank; the kernel
+    path equals the plain one within the module test's bars (float32 rtol
+    1e-5; bf16 outputs within one bf16 rounding, 1e-2) for the outputs and
+    dx, and within 1e-4 for the summed scale and bias gradients and the
+    running statistics (sums over 16384 values a channel, in another
+    order: 3.8e-5 apart on the card), and both equal one process's plain
+    BatchNorm on the whole batch."""
+    import multiprocessing as mp
+
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.parallel import mesh
+
+    x, dy = _bn_inputs((16, 64, 32, 32), dtype, torch.device("cpu"), seed=3)
+    dy = dy.float()
+    port = mesh.free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_sync_bn_rank, args=(r, port, x, dy, tmp_path / f"r{r}.pt"))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert not any(p.is_alive() for p in procs)
+    ranks = [torch.load(tmp_path / f"r{r}.pt", weights_only=False) for r in range(2)]
+    assert all("error" not in r for r in ranks), [r.get("error") for r in ranks]
+    m = BatchNorm(64).to(dev).train()
+    xi = x.to(dev).clone().requires_grad_(True)
+    y = m(xi)
+    (y.float() * dy.to(dev)).sum().backward()
+    whole = [t.detach().float().cpu() for t in (y, xi.grad, torch.stack([m.weight.grad,
+                                                                         m.bias.grad]),
+                                                m.running_mean, m.running_var)]
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for r, res in enumerate(ranks):
+        assert res["kernel"][-1] == (1, 1) and res["plain"][-1] == (0, 0)
+        for a, b in zip(res["kernel"][:2], res["plain"][:2]):
+            torch.testing.assert_close(a, b, **tol)
+        for a, b in zip(res["kernel"][2:-1], res["plain"][2:-1]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        for a, b in zip(res["kernel"][:2], whole[:2]):
+            torch.testing.assert_close(a, b[r * 8:(r + 1) * 8], **tol)
+        for a, b in zip(res["kernel"][2:-1], whole[2:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -7,7 +7,7 @@ import torch
 from unet_tpu_torch.__main__ import cli
 from unet_tpu_torch.utils import doctor
 
-CHECKS = ("versions", "devices", "toolchain", "native decoder")
+CHECKS = ("versions", "devices", "mesh", "toolchain", "native decoder")
 
 
 @pytest.fixture
@@ -21,7 +21,7 @@ def test_doctor_without_a_card_is_not_ready(no_card, capsys):
     for name in CHECKS:
         assert name in out
     assert "FAIL  devices" in out and "no CUDA device" in out
-    assert "blocking: devices" in out and "all checks passed" not in out
+    assert "blocking: devices, mesh" in out and "all checks passed" not in out
     assert "kernels" not in out  # opt-in
 
 
@@ -64,6 +64,7 @@ def test_a_check_that_raises_is_reported(no_card, monkeypatch, capsys):
 def test_exit_code_is_zero_only_when_every_check_passes(monkeypatch, capsys):
     for name in ("_versions", "_devices", "_toolchain", "_native", "_kernels"):
         monkeypatch.setattr(doctor, name, lambda: (True, "fine"))
+    monkeypatch.setattr(doctor, "_mesh", lambda device: (True, "fine"))
     assert cli(["doctor", "--kernels"]) == 0
     assert "doctor: all checks passed" in capsys.readouterr().out
     monkeypatch.setattr(doctor, "_toolchain", lambda: (False, "no nvcc"))

@@ -174,8 +174,13 @@ def test_training_repeats_bit_for_bit_with_its_seed(trained, tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--coordinator", "localhost:1234"], ["--num-processes", "2"], ["--process-id", "0"]])
 def test_unported_train_options_fail_clearly(trained, flag, capsys):
+    """The multi-process flags are ported (tests/test_torch_distributed.py);
+    one of them without the other two exits 2 and names what is missing,
+    before any process group or training starts."""
     assert cli(["train", *trained["args"], *flag]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert f"{flag[0]} given without" in err and "needs all three" in err
+    assert "not yet ported" not in err
 
 
 @pytest.mark.parametrize("flag,want", [

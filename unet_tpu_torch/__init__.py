@@ -9,7 +9,10 @@ with or without self-attention (``train``), predicts tile sets into tiles
 or a merged mosaic (``predict``) and whole scenes (``serve``); it imports
 fastai-trained models (``import-model``) and checks a machine
 (``doctor``), with hand-written CUDA kernels under ``ops/csrc/`` and the
-native tile decoder under ``native/``.
+native tile decoder under ``native/``. ``run`` (``api.py``) drives the
+reference's stages from a ``Params`` file, training resumes from its step
+checkpoints, and ``parallel/mesh.py`` trains data-parallel over
+processes.
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and never
 fall back to the CPU unasked.

@@ -1,5 +1,6 @@
-"""CLI front-end: ``python -m unet_tpu_torch <tile|train|predict|serve|import-weights|import-model|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <run|tile|train|predict|serve|import-weights|import-model|doctor> ...``.
 
+    python -m unet_tpu_torch run config.json [--multi] [--device cpu]
     python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch predict models/run1 pred/img_tiles --merge [--device-merge]
@@ -9,6 +10,11 @@
     python -m unet_tpu_torch doctor [--kernels]
 
 Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
+``run`` drives the reference's stages (``Create_tiles``, ``Train``,
+``Predict``) from a JSON file of ``api.Params`` fields, as ``unet_tpu run``
+does (``--multi``: the list-broadcast multi-run mode); it is the way to
+``resume`` from step checkpoints and to set ``checkpoint_every``, as in
+``unet_tpu``, and ``--device`` overrides the config's ``device``.
 ``tile`` is host code, as in ``unet_tpu``, and writes the same tile tree.
 ``predict`` predicts a folder of tiles into predicted tiles or, with
 ``--merge``, one overlap-averaged mosaic (``--device-merge``: accumulated
@@ -20,8 +26,10 @@ rows streamed to the output file.
 ``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
 ``--self-attention`` in either; ``--regression``, ``--lr-finder``,
 ``--existing-model``, ``--pretrained-weights`` (a ``.pth`` or an ``.npz``
-that ``import-weights`` writes), ``--grad-accum``, ``--reference-quirks``
-and ``--profile-dir`` as in ``unet_tpu``), ``predict`` and ``serve`` (any bundle:
+that ``import-weights`` writes), ``--grad-accum``, ``--reference-quirks``,
+``--profile-dir`` and, for data parallelism over processes, ``--coordinator
+host:port --num-processes N --process-id I`` (all three, the same command
+in every process) as in ``unet_tpu``), ``predict`` and ``serve`` (any bundle:
 tpu_opt, parity, imported) and ``import-model`` (a fastai DynamicUnet
 state_dict → a parity bundle) also take ``--device`` (default ``cuda``);
 ``train`` and ``serve``
@@ -29,8 +37,9 @@ take ``--stats-json`` (write the run's timings, kernel launch counts and,
 for ``train``, the loader's decode path, for ``serve`` each scene's tier
 to a JSON file); both compute in bf16.
 ``doctor`` checks whether this machine is ready: versions, the CUDA
-device, the nvcc toolchain, the native decoder and, with ``--kernels``
-(also spelled ``--pallas``, as in ``unet_tpu``), every CUDA kernel against
+device, a one-process data-parallel group (``mesh``), the nvcc
+toolchain, the native decoder and, with ``--kernels`` (also spelled
+``--pallas``, as in ``unet_tpu``), every CUDA kernel against
 its plain version; it exits 0 only when every check passes. Arguments
 whose feature is not ported yet exit with "not yet ported" instead of
 being ignored. The other subcommands come with later slices.
@@ -51,6 +60,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="aerial segmentation training and serving on NVIDIA GPUs "
                     "(PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="command", required=True)
+
+    run = sub.add_parser("run", help="run stages from a JSON params file")
+    run.add_argument("config", help="JSON file with Params fields")
+    run.add_argument("--multi", action="store_true", help="list-broadcast multi-run mode")
+    run.add_argument("--device", default=None,
+                     help="torch device, in place of the config's (default cuda)")
 
     tile = sub.add_parser("tile", help="split a GeoTIFF into training tiles")
     tile.add_argument("image")
@@ -102,9 +117,13 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--reference-quirks", action="store_true")
     tr.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the first epoch here")
-    tr.add_argument("--coordinator", default=None, help="not yet ported")
-    tr.add_argument("--num-processes", type=int, default=None, help="not yet ported")
-    tr.add_argument("--process-id", type=int, default=None, help="not yet ported")
+    tr.add_argument("--coordinator", default=None,
+                    help="data parallelism over processes: the coordinator's "
+                         "host:port (run the same command in every process)")
+    tr.add_argument("--num-processes", type=int, default=None,
+                    help="data parallelism: the number of processes")
+    tr.add_argument("--process-id", type=int, default=None,
+                    help="data parallelism: this process's rank (0-based)")
     tr.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu only when asked)")
     tr.add_argument("--stats-json", default=None,
@@ -248,6 +267,16 @@ def _device_name(device) -> str:
 
 
 def _dispatch(args) -> int:
+    if args.command == "run":
+        import dataclasses
+
+        from .api import main, main_multi, params_from_json
+
+        p = params_from_json(args.config)
+        if args.device is not None:
+            p = dataclasses.replace(p, device=args.device)
+        (main_multi if args.multi else main)(p)
+        return 0
     if args.command == "doctor":
         from .utils.doctor import run_doctor
 
@@ -280,17 +309,32 @@ def _dispatch(args) -> int:
     return _train(args) if args.command == "train" else _serve(args)
 
 
-UNPORTED_TRAIN_ARGS = (
-    ("coordinator", "--coordinator"), ("num_processes", "--num-processes"),
-    ("process_id", "--process-id"))
+DISTRIBUTED_ARGS = (("coordinator", "--coordinator"), ("num_processes", "--num-processes"),
+                    ("process_id", "--process-id"))
 
 
 def _train(args) -> int:
+    from .parallel import mesh
+
+    given = [flag for attr, flag in DISTRIBUTED_ARGS if getattr(args, attr) is not None]
+    if given and len(given) < len(DISTRIBUTED_ARGS):
+        raise ValueError(f"{', '.join(given)} given without "
+                         + ", ".join(f for _, f in DISTRIBUTED_ARGS if f not in given)
+                         + ": data parallelism needs all three")
+    if not given:
+        return _train_run(args)
+    mesh.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                          device=args.device)
+    try:
+        return _train_run(args)
+    finally:
+        mesh.close_distributed()
+
+
+def _train_run(args) -> int:
+    from .parallel import mesh
     from .train.loop import Trainer, TrainerConfig, train_model
 
-    for attr, flag in UNPORTED_TRAIN_ARGS:
-        if getattr(args, attr) is not None:
-            raise NotImplementedError(f"{flag} is not yet ported")
     cw = args.class_weights
     if cw not in ("even", "weighted"):
         cw = json.loads(cw)
@@ -312,6 +356,8 @@ def _train(args) -> int:
     t0 = time.perf_counter()
     out = train_model(cfg, trainer)
     seconds = time.perf_counter() - t0
+    if not mesh.is_primary():  # rank 0 reports for the process group
+        return 0
     print(f"Model bundle exported to {out}")
     if args.stats_json:
         step_ms = trainer.step_ms()
@@ -340,24 +386,11 @@ def _compress_arg(args):
     return None if args.compress in (None, "none") else args.compress
 
 
-def _is_artifact(path) -> bool:
-    """True if ``path`` is a ``unet_tpu export`` serving artifact (an npz
-    file holding ``__utaot__``) rather than a model bundle."""
-    import numpy as np
-
-    if not os.path.isfile(path):
-        return False
-    try:
-        with np.load(path, allow_pickle=False) as z:
-            return "__utaot__" in z.files
-    except (OSError, ValueError):
-        return False
-
-
 def _predict(args) -> int:
+    from .api import is_artifact
     from .predict.predict import save_predictions
 
-    if _is_artifact(args.model):
+    if is_artifact(args.model):
         raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
     out = save_predictions(args.model, args.tiles, args.regression, args.merge,
                            args.all_classes, args.specific_class, args.large_file,
@@ -374,13 +407,14 @@ def _predict(args) -> int:
 def _serve(args) -> int:
     import torch
 
+    from .api import is_artifact
     from .ops.blend import blend_and_count
     from .predict.predict import (Predictor, predict_raster, predict_raster_streamed,
                                   serve_scenes)
 
     if args.spatial > 1:
         raise NotImplementedError("--spatial > 1 is not yet ported")
-    if _is_artifact(args.model):
+    if is_artifact(args.model):
         raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
     compress = _compress_arg(args)
     predictor = Predictor(args.model, batch_size=args.batch_size,

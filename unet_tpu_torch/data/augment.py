@@ -29,9 +29,10 @@ whatever the config.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -148,6 +149,12 @@ class AugmentDraws:
         return cls(torch.zeros(b, dtype=torch.int64), off, off, off, ones,
                    torch.zeros(b, dtype=torch.float32), off, ones, off,
                    torch.zeros((cfg.dropout_holes, 2, b), dtype=torch.int64))
+
+    def take(self, idx: torch.Tensor) -> "AugmentDraws":
+        """The draws of the samples ``idx`` (a rank's share of the batch)."""
+        return AugmentDraws(**{f.name: getattr(self, f.name)[..., idx] if f.name == "holes"
+                               else getattr(self, f.name)[idx]
+                               for f in dataclasses.fields(self)})
 
 
 def flip_flags(batch_size: int, n_aug: int, cfg: AugmentConfig,
@@ -283,6 +290,8 @@ def augment_batch(
     split_idx: Optional[int] = 0,
     reference_quirks: bool = False,
     flip_scale: Callable = fused_flip_scale,
+    batch_size: Optional[int] = None,
+    shard: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Scale + (conditionally) augment one device batch.
 
@@ -290,13 +299,21 @@ def augment_batch(
     (B,H,W) or None. Returns float32 images and the masks in their dtype.
     ``flip_scale`` is the pass that applies flags and scales
     (``fused_flip_scale``; ``fused_flip_scale_reference`` holds the kernel
-    against its plain version on the card)."""
+    against its plain version on the card). Under data parallelism the
+    images are the samples ``shard`` of a ``batch_size`` batch: the draws
+    and scales are made for the whole batch, as every rank makes them, and
+    the shard's are applied."""
     b, _, h, w = images.shape
+    if shard is not None:
+        b = batch_size
     n_aug = n_augmented(b, n_transform_imgs, reference_quirks)
     active = augment_active(split, split_idx) and n_aug > 0
     scales = sample_scales(b, n_aug if active else 0, dtype_str, normalize,
                            reference_quirks)
     draws = (draw_augment(b, h, w, cfg, n_aug, generator) if active
              else AugmentDraws.none(b, cfg))
+    if shard is not None:
+        idx = torch.as_tensor(shard, dtype=torch.int64)
+        draws, scales = draws.take(idx), scales[idx]
     return apply_augment(images, masks, draws, scales, cfg,
                          value_max(dtype_str, normalize), flip_scale)

@@ -10,6 +10,10 @@ and ``first_batch_ms`` record the choice. Whole batches are built ahead of
 the device. Batches are NCHW in the tiles' storage dtype, ready for
 ``torch.from_numpy``; the native decoder's NHWC output is transposed in the
 batch worker, where prefetch hides it.
+
+Under data parallelism every rank orders the batches alike (the same seed)
+and decodes only its ``shard``: the global sample indices of each batch
+that it holds (``parallel.mesh.shard_indices``).
 """
 
 from __future__ import annotations
@@ -43,17 +47,25 @@ class TileLoader:
     built (None before); ``first_batch_ms`` holds that batch's decode time
     each way (None for a path that was not timed: no native library, or a
     native decode that failed).
+
+    ``shard`` (default: every index) are the samples of each ``batch_size``
+    batch this process decodes, increasing; ``n_valid`` then counts the
+    real samples among them, which come first.
     """
 
     def __init__(self, dataset: TileDataset, files: Sequence[Path],
                  batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, n_threads: int = 8):
+                 drop_last: bool = False, seed: int = 0, n_threads: int = 8,
+                 shard: Optional[Sequence[int]] = None):
         self.dataset = dataset
         self.files = list(files)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
+        self.shard = np.arange(batch_size) if shard is None else np.asarray(shard)
+        if np.any(np.diff(self.shard) <= 0):
+            raise ValueError(f"shard {self.shard.tolist()} is not increasing")
         self.n_threads = n_threads
         self._pool = cf.ThreadPoolExecutor(max_workers=n_threads)  # tile decodes
         self._batcher = cf.ThreadPoolExecutor(max_workers=PREFETCH)  # batch builds
@@ -84,7 +96,9 @@ class TileLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _make_batch(self, paths: List[Path]) -> Batch:
+    def _make_batch(self, paths: List[Path], n_valid: int) -> Batch:
+        """Decode ``paths``, padded to the shard's size; ``n_valid`` of them
+        are real (0 where ``paths`` is only the batch's last tile)."""
         if self.path is None:
             # prefetch workers run this concurrently; decide exactly once
             with self._decide_lock:
@@ -92,10 +106,10 @@ class TileLoader:
                     self._choose_path(paths)
         if self.path == "native":
             try:
-                return self.make_batch_native(paths)
+                return (*self.make_batch_native(paths)[:2], n_valid)
             except RuntimeError:
                 self.path = "python"  # permanent fallback to the Python codec
-        return self.make_batch_python(paths)
+        return (*self.make_batch_python(paths)[:2], n_valid)
 
     def _choose_path(self, paths: List[Path]) -> None:
         """Decode the first batch both ways once and keep the faster path.
@@ -120,7 +134,7 @@ class TileLoader:
         """The batch of ``paths`` decoded tile by tile by the Python codec."""
         pairs = list(self._pool.map(self.dataset.load_pair, paths))
         n_valid = len(pairs)
-        pairs += [pairs[-1]] * (self.batch_size - n_valid)  # pad the last eval batch
+        pairs += [pairs[-1]] * (len(self.shard) - n_valid)  # pad the last eval batch
         images = np.stack([p[0] for p in pairs])
         masks = np.stack([p[1] for p in pairs])
         return images, masks, n_valid
@@ -133,7 +147,7 @@ class TileLoader:
             raise RuntimeError("native decoder unavailable for these tiles")
         h, w, c = self._tile_shape
         n_valid = len(paths)
-        full = list(paths) + [paths[-1]] * (self.batch_size - n_valid)
+        full = list(paths) + [paths[-1]] * (len(self.shard) - n_valid)
         nhwc = native.decode_batch_raw(full, h, w, c, self._tile_dtype, self.n_threads)
         images = np.ascontiguousarray(nhwc.transpose(0, 3, 1, 2))
         mask_paths = [get_mask_path(p) for p in full]
@@ -154,20 +168,23 @@ class TileLoader:
             idx = order[i:i + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 break
-            batches.append([self.files[j] for j in idx])
+            # this process's real samples; make_batch_* pad them (the last
+            # eval batch); a share holding none decodes the batch's last tile
+            real = [self.files[idx[j]] for j in self.shard if j < len(idx)]
+            batches.append((real or [self.files[idx[-1]]], len(real)))
 
         # keep PREFETCH batch builds in flight
         inflight: deque = deque()
         it = iter(batches)
-        for paths in it:
-            inflight.append(self._batcher.submit(self._make_batch, paths))
+        for batch in it:
+            inflight.append(self._batcher.submit(self._make_batch, *batch))
             if len(inflight) >= PREFETCH:
                 break
         while inflight:
             fut = inflight.popleft()
             nxt = next(it, None)
             if nxt is not None:
-                inflight.append(self._batcher.submit(self._make_batch, nxt))
+                inflight.append(self._batcher.submit(self._make_batch, *nxt))
             yield fut.result()
 
     def close(self) -> None:

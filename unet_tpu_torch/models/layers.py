@@ -72,7 +72,9 @@ class BatchNorm(nn.Module):
     tensors, their plain versions for CPU tensors; ``reductions =
     PLAIN_REDUCTIONS`` runs the plain versions on the card too) and updates
     the running averages as flax does: ``ra = m·ra + (1 − m)·batch`` with
-    momentum m = 0.9 and the biased batch variance."""
+    momentum m = 0.9 and the biased batch variance. ``group`` (None, or a
+    process group set by ``sync_batch_norm``) makes the statistics those of
+    the ranks' global batch."""
 
     momentum = 0.9
 
@@ -80,6 +82,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.reductions = KERNEL_REDUCTIONS
+        self.group = None
         self.weight = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
@@ -90,12 +93,20 @@ class BatchNorm(nn.Module):
             return batch_norm(x, self.running_mean, self.running_var,
                               self.weight, self.bias, self.eps)
         y, mean, var = BatchNormTrain.apply(x, self.weight, self.bias,
-                                            self.eps, self.reductions)
+                                            self.eps, self.reductions, self.group)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+def sync_batch_norm(model: nn.Module, group) -> None:
+    """Set the process group of every ``BatchNorm`` in ``model`` (None:
+    each process's own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class ConvLayer(nn.Module):

@@ -20,6 +20,13 @@ cast to ``x.dtype``. Its backward is the standard BatchNorm gradient,
 ``dx = scale·inv·(dy − Σdy/n − x̂·Σdy·x̂/n)`` in float32, cast to
 ``x.dtype``; dscale and dbias stay float32. The elementwise passes are
 PyTorch ops, as they are XLA ops outside the TPU kernels.
+
+Under a process group (``group``, the ranks of one data-parallel step)
+the forward all-reduces the (2, C) sums and divides by the global count,
+so every rank normalizes with the global batch's statistics, as GSPMD
+computes them in JAX; the backward all-reduces its (2, C) sums before dx
+and returns the rank's own dscale and dbias, which the trainer's gradient
+all-reduce then sums once.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import ctypes
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 THREADS = 256                # threads per block of the stage-1 kernel
 BLOCKS_PER_SM = 8            # resident stage-1 blocks the grid aims for on each SM
@@ -178,17 +186,21 @@ PLAIN_REDUCTIONS = (bn_sum_sumsq_reference, bn_bwd_sums_reference)
 
 class BatchNormTrain(torch.autograd.Function):
     """``(y, mean, var) = BatchNormTrain.apply(x, scale, bias, eps,
-    reductions)``: training-mode BatchNorm over (N, H, W) of an NCHW
+    reductions, group)``: training-mode BatchNorm over (N, H, W) of an NCHW
     tensor. ``reductions`` is the pair (forward sums, backward sums):
     ``KERNEL_REDUCTIONS``, or ``PLAIN_REDUCTIONS`` to hold the kernels
-    against their plain versions on the card; mean and var are the float32 batch
-    statistics (biased variance) for the running averages and carry no
-    gradient."""
+    against their plain versions on the card; ``group`` is None, or the
+    process group whose ranks hold equal shares of the batch; mean and var
+    are the float32 batch statistics (biased variance) for the running
+    averages and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, reductions):
+    def forward(ctx, x, scale, bias, eps: float, reductions, group=None):
         n = x.numel() // x.shape[1]
         sums = reductions[0](x)
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+            n *= dist.get_world_size(group)
         mean = sums[0] / n
         var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -196,19 +208,24 @@ class BatchNormTrain(torch.autograd.Function):
         y = ((x.float() - mean.view(shape)) * (inv * scale).view(shape)
              + bias.view(shape)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.bwd_sums = reductions[1]
+        ctx.bwd_sums, ctx.group, ctx.n = reductions[1], group, n
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         dy = dy.contiguous()
         sums = ctx.bwd_sums(dy, x, mean, inv)
-        dbias, dscale = sums[0], sums[1]
+        total = sums
+        if ctx.group is not None:
+            total = sums.clone()
+            dist.all_reduce(total, group=ctx.group)
+        dbias, dscale = total[0], total[1]
         shape = (1, -1, 1, 1)
         xhat = (x.float() - mean.view(shape)) * inv.view(shape)
         dx = (scale * inv).view(shape) * (
             dy.float() - (dbias / n).view(shape) - xhat * (dscale / n).view(shape))
-        return dx.to(x.dtype), dscale, dbias, None, None
+        # the rank's own sums: the trainer's gradient all-reduce adds them up
+        return dx.to(x.dtype), sums[1], sums[0], None, None, None

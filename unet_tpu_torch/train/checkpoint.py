@@ -13,13 +13,27 @@ weight/bias/running_mean/running_var, the transposed-conv kernel
 ``ConvTranspose`` does not flip its kernel; torch's transposed conv does),
 and SelfAttention's ``*_kernel`` and ``gamma`` params and ``*_u``
 batch_stats as they are (parameters and buffers of the same names).
+
+Step checkpoints (``save_checkpoint`` / ``latest_checkpoint`` /
+``load_checkpoint``) sit where ``unet_tpu`` keeps its orbax checkpoints,
+``<model_path>/<description>/checkpoints/<epoch>/``, and the newest two are
+kept, as its ``max_to_keep=2`` does; but they are the port's own format, a
+single ``state.msgpack`` of the msgpack codec holding flax-named trees:
+``params`` and ``batch_stats``, ``opt_state`` (Adam's ``mu`` and ``nu``,
+shaped as ``params``), ``step`` (the optimizer's count) and ``epoch``.
+Checkpoints do not cross packages: neither package resumes from the
+other's (bundles still do). A checkpoint is written under a temporary name,
+synced and renamed, so a process killed mid-write leaves none that
+``latest_checkpoint`` picks.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 from pathlib import Path
-from typing import Any, Dict, Mapping, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -148,6 +162,46 @@ def to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
         else:
             _set(params, path, name, a)
     return {"params": params, "batch_stats": stats}
+
+
+CHECKPOINT_FILE = "state.msgpack"
+MAX_TO_KEEP = 2
+
+
+def checkpoint_epochs(ckpt_dir: Union[str, Path]) -> list:
+    """The epochs with a complete checkpoint in ``ckpt_dir``, ascending."""
+    d = Path(ckpt_dir)
+    if not d.is_dir():
+        return []
+    return sorted(int(p.name) for p in d.iterdir()
+                  if p.name.isdigit() and (p / CHECKPOINT_FILE).is_file())
+
+
+def latest_checkpoint(ckpt_dir: Union[str, Path]) -> Optional[int]:
+    """The newest complete checkpoint's epoch, or None."""
+    epochs = checkpoint_epochs(ckpt_dir)
+    return epochs[-1] if epochs else None
+
+
+def save_checkpoint(ckpt_dir: Union[str, Path], epoch: int, state: Dict[str, Any]) -> Path:
+    """Write ``state`` (the tree described in the module docstring) as
+    epoch ``epoch``'s checkpoint, atomically, then delete all but the
+    newest ``MAX_TO_KEEP``."""
+    d = Path(ckpt_dir) / str(epoch)
+    d.mkdir(parents=True, exist_ok=True)
+    tmp = d / f"{CHECKPOINT_FILE}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_codec.serialize(state))
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, d / CHECKPOINT_FILE)
+    for old in checkpoint_epochs(ckpt_dir)[:-MAX_TO_KEEP]:
+        shutil.rmtree(Path(ckpt_dir) / str(old))
+    return d / CHECKPOINT_FILE
+
+
+def load_checkpoint(ckpt_dir: Union[str, Path], epoch: int) -> Dict[str, Any]:
+    return msgpack_codec.restore((Path(ckpt_dir) / str(epoch) / CHECKPOINT_FILE).read_bytes())
 
 
 def load_bundle(bundle: Union[str, Path], best: bool = False,

@@ -1,6 +1,7 @@
-"""The training engine: one-cycle fit of the U-Net on one device.
+"""The training engine: one-cycle fit of the U-Net on one device or
+data-parallel over processes.
 
-Counterpart of ``unet_tpu/train/loop.py`` for one device, in both
+Counterpart of ``unet_tpu/train/loop.py``, in both
 topologies (tpu_opt, the default, and parity, ``tpu_opt=False``; tiles
 whose sides are not divisible by 4 fall back to parity before the model
 is built, as the JAX trainer does), with or without self-attention:
@@ -35,9 +36,25 @@ is built, as the JAX trainer does), with or without self-attention:
   msgpack weights, ``best-model.msgpack``, ``<desc>_history.csv``,
   ``<desc>_profile.txt`` and, after a sweep, ``<desc>_lr_find.csv``.
 
-Resume and step checkpoints, multi-process training, the plots and the
-model summary are not ported yet; ``TrainerConfig`` has no fields for
-them.
+* step checkpoints every ``checkpoint_every`` epochs and ``resume`` from
+  the newest, with JAX's semantics (``train/checkpoint.py``: the port's own
+  format, where ``unet_tpu`` writes orbax): the restore follows the LR
+  sweep, the run goes on from the checkpoint's epoch and its history holds
+  only the epochs it ran. As in JAX, a resumed run starts the loader's
+  permutations, the augmentation draws, the smoothed loss and the best
+  metric afresh from the seed;
+* ``export_model_summary``: ``<desc>_model_summary.txt``, JAX's lines and
+  a layer table of the port's own;
+* data parallelism over a process group (``parallel/mesh.py``):
+  ``batch_size`` is the global batch, each rank decodes and runs its share
+  (an indivisible batch raises; JAX would drop chips), the BatchNorm
+  statistics and the loss denominators are the global batch's, the
+  gradients and the loss are summed over the ranks once a step (after the
+  last microbatch), validation's sums are reduced, and only rank 0 prints
+  rows and writes the bundle, the checkpoints and the summary.
+
+``visualize_data_example`` and ``spatial`` > 1 are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -51,12 +68,14 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data import (NOOP_AUGMENT, AugmentConfig, TileDataset, TileLoader,
                     augment_batch, get_datatype, get_patch_size,
                     resolve_class_weights)
 from ..models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
-from ..utils.device import resolve_device
+from ..models.layers import sync_batch_norm
+from ..parallel import mesh
 from ..utils.profiling import StepTimer, device_trace
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -67,8 +86,9 @@ from .schedule import SUGGESTERS, lr_finder_lrs, suggest_lr
 
 @dataclass
 class TrainerConfig:
-    """The one-device part of ``unet_tpu.train.loop.TrainerConfig``, plus
-    the ``device`` (default ``cuda``)."""
+    """``unet_tpu.train.loop.TrainerConfig`` with the ``device`` (default
+    ``cuda``; under a process group, ``cuda`` is card ``rank % cards``) in
+    place of JAX's device list."""
 
     data_path: Union[str, Path] = "."
     model_path: Union[str, Path] = "."
@@ -92,6 +112,8 @@ class TrainerConfig:
     aug: AugmentConfig = field(default_factory=AugmentConfig)
     existing_model: Optional[str] = None
     pretrained_weights: Optional[str] = None  # xresnet state_dict (.pth) or .npz
+    export_model_summary: bool = False
+    visualize_data_example: bool = False  # not yet ported: raises
     info: str = ""
     class_zero: bool = False
     normalize: str = "reference"
@@ -100,6 +122,9 @@ class TrainerConfig:
     bf16: bool = True
     seed: int = 0
     loader_threads: int = 8
+    checkpoint_every: int = 0  # epochs; 0 = off
+    resume: bool = False
+    spatial: int = 1  # not yet ported beyond 1: raises
     # sequential microbatches a step: BatchNorm uses each microbatch's
     # statistics, the gradients average; batch_size must divide evenly
     grad_accum: int = 1
@@ -131,9 +156,20 @@ LR_FIND_WINDOW = 10  # sweep losses fetched this many at a time, not a host sync
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig):
+        if cfg.visualize_data_example:
+            raise NotImplementedError("visualize_data_example is not yet ported; set it "
+                                      "to False")
+        if cfg.spatial > 1:
+            raise NotImplementedError("spatial > 1 is not yet ported; set spatial to 1")
         if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} must divide into "
                              f"grad_accum={cfg.grad_accum} microbatches")
+        # data parallelism: each rank holds its share of every (micro)batch
+        self.world, self.rank, self.group = mesh.data_size(), mesh.rank(), mesh.data_group()
+        self.primary = self.rank == 0
+        accum = max(1, cfg.grad_accum)
+        self.train_shard = mesh.shard_indices(cfg.batch_size, accum, self.world, self.rank)
+        self.valid_shard = mesh.shard_indices(cfg.batch_size, 1, self.world, self.rank)
         if cfg.existing_model:
             # transfer learning: the bundle defines the architecture
             m = ckpt.load_manifest(ckpt.bundle_paths(cfg.existing_model)[1])
@@ -144,10 +180,13 @@ class Trainer:
                 if v is not None and getattr(cfg, field_name) != v:
                     adopted[field_name] = v
             if adopted:
-                print(f"existing_model: adopting bundle topology {adopted}")
+                if self.primary:
+                    print(f"existing_model: adopting bundle topology {adopted}")
                 cfg = replace(cfg, **adopted)
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.device = mesh.rank_device(cfg.device)
+        if self.device.type == "cuda":  # the rank's card is the current one (CUDA initialized)
+            torch.cuda.set_device(self.device)
         self.data_path = Path(cfg.data_path)
         self.dataset = TileDataset(self.data_path, valid_scenes=cfg.valid_scenes,
                                    regression=cfg.regression,
@@ -155,9 +194,11 @@ class Trainer:
         self.dtype_str = get_datatype(self.data_path)
         self.train_loader = TileLoader(self.dataset, self.dataset.train_files,
                                        cfg.batch_size, shuffle=True, drop_last=True,
-                                       seed=cfg.seed, n_threads=cfg.loader_threads)
+                                       seed=cfg.seed, n_threads=cfg.loader_threads,
+                                       shard=self.train_shard)
         self.valid_loader = TileLoader(self.dataset, self.dataset.valid_files,
-                                       cfg.batch_size, n_threads=cfg.loader_threads)
+                                       cfg.batch_size, n_threads=cfg.loader_threads,
+                                       shard=self.valid_shard)
         if len(self.train_loader) == 0:
             raise ValueError(f"batch_size {cfg.batch_size} exceeds "
                              f"{self.dataset.n_train} training tiles")
@@ -172,20 +213,22 @@ class Trainer:
         if cfg.tpu_opt and (self.tile_hw[0] % 4 or self.tile_hw[1] % 4):
             # decided here, before the model is built, so the manifest
             # stamps the topology actually trained
-            print(f"Tile size {self.tile_hw} not divisible by 4: tpu_opt "
-                  "topology unavailable — using the parity topology "
-                  "(tpu_opt=False). Pad tiles to a multiple of 4 to use the "
-                  "TPU-optimized decoder.")
+            self.print(f"Tile size {self.tile_hw} not divisible by 4: tpu_opt "
+                       "topology unavailable — using the parity topology "
+                       "(tpu_opt=False). Pad tiles to a multiple of 4 to use the "
+                       "TPU-optimized decoder.")
             cfg = self.cfg = replace(cfg, tpu_opt=False)
         self.model = build_unet(cfg.arch, n_out=self.n_out, c_in=self.c_in,
                                 self_attention=cfg.self_attention, tpu_opt=cfg.tpu_opt,
                                 dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
+        sync_batch_norm(self.model, self.group)
         self.class_weights = resolve_class_weights(cfg.class_weights, cfg.codes,
                                                    self.data_path, cfg.regression,
                                                    reference_quirks=cfg.reference_quirks)
         weight = None if cfg.regression else torch.tensor(
             self.class_weights, dtype=torch.float32, device=self.device)
-        self.loss_fn = build_loss(cfg.loss_func, weight, regression=cfg.regression)
+        self.loss_fn = build_loss(cfg.loss_func, weight, regression=cfg.regression,
+                                  group=self.group)
         self.monitor, self.comp = _monitor_defaults(cfg.monitor, cfg.regression)
         self.aug_cfg = cfg.aug if cfg.transforms else NOOP_AUGMENT
         self.steps_per_epoch = len(self.train_loader)
@@ -201,6 +244,11 @@ class Trainer:
     def close(self) -> None:
         self.train_loader.close()
         self.valid_loader.close()
+
+    def print(self, *args) -> None:
+        """Print on rank 0 only."""
+        if self.primary:
+            print(*args)
 
     # --- state ---------------------------------------------------------------
 
@@ -250,7 +298,12 @@ class Trainer:
 
     def augment(self, images: torch.Tensor, masks: Optional[torch.Tensor],
                 split: str, generator: torch.Generator, **kwargs):
+        """Scale and augment a device batch (this rank's share of it under
+        data parallelism: the draws are made for the whole batch)."""
         cfg = self.cfg
+        if self.world > 1:
+            kwargs.update(batch_size=cfg.batch_size,
+                          shard=self.train_shard if split == "train" else self.valid_shard)
         return augment_batch(images, masks, self.aug_cfg, generator,
                              n_transform_imgs=cfg.n_transform_imgs,
                              dtype_str=self.dtype_str, normalize=cfg.normalize,
@@ -267,7 +320,10 @@ class Trainer:
         logits, tpu_opt; as they are where it returns full-resolution ones,
         parity), and its backward into the parameters' ``.grad``: per
         microbatch under ``grad_accum``, the gradients summed and divided
-        by their count. Returns the mean loss."""
+        by their count. Under a process group ``images`` and ``masks`` are
+        this rank's share of the batch; the gradients and the loss are then
+        summed over the ranks once, after the last microbatch. Returns the
+        mean loss (the global batch's)."""
         self.model.train()
         params = list(self.model.parameters())
         for p in params:
@@ -281,13 +337,29 @@ class Trainer:
             loss = self.loss_fn(self._preds(logits), y)
             loss.backward()
             losses.append(loss.detach())
-        if accum == 1:
-            return losses[0]
-        with torch.no_grad():
-            for p in params:
-                if p.grad is not None:
-                    p.grad.div_(accum)
-        return torch.stack(losses).sum() / accum
+        loss = losses[0]
+        if accum > 1:
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+            loss = torch.stack(losses).sum() / accum
+        if self.group is not None:
+            loss = self._all_reduce_grads(params, loss)
+        return loss
+
+    @torch.no_grad()
+    def _all_reduce_grads(self, params: List[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
+        """Sum the ranks' gradients and losses in one all-reduce; returns the
+        summed loss."""
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.float().reshape(1)])
+        dist.all_reduce(flat, group=self.group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1]
 
     def train_step(self, images: np.ndarray, masks: np.ndarray,
                    optimizer: Optional[OneCycleAdam] = None,
@@ -338,7 +410,19 @@ class Trainer:
             state = (M.regression_update if regression else M.dice_multi_update)(
                 state, preds, y, sample_mask)
             counts.append(n_valid)
-        values = torch.stack(losses).cpu().tolist()
+        values = torch.stack(losses)
+        if self.group is not None:  # the ranks' shares: sum losses, counts, metric sums
+            n_b = len(counts)
+            flat = torch.cat([values, torch.tensor(counts, dtype=torch.float32,
+                                                   device=self.device)]
+                             + [t.reshape(-1) for t in state.values()])
+            dist.all_reduce(flat, group=self.group)
+            values, counts = flat[:n_b], [int(c) for c in flat[n_b:2 * n_b].tolist()]
+            offset = 2 * n_b
+            for k, t in state.items():
+                state[k] = flat[offset:offset + t.numel()].view_as(t)
+                offset += t.numel()
+        values = values.cpu().tolist()
         out = {"valid_loss": sum(v * n for v, n in zip(values, counts)) / max(sum(counts), 1)}
         if regression:
             out.update(rmse=float(M.rmse_value(state)), r2_score=float(M.r2_value(state)))
@@ -349,22 +433,32 @@ class Trainer:
     # --- fit -----------------------------------------------------------------------
 
     def fit(self) -> List[Dict[str, Any]]:
-        """Train ``epochs`` epochs. With ``lr_finder`` the sweep runs first
-        and the run starts from fresh weights at the suggested LR; else from
-        the state ``init_state`` set (``init_state()`` when none is)."""
+        """Train up to ``epochs`` epochs. With ``lr_finder`` the sweep runs
+        first and the run starts from fresh weights at the suggested LR; else
+        from the state ``init_state`` set (``init_state()`` when none is).
+        With ``resume`` the newest step checkpoint, if any, then replaces
+        that state and the run goes on from its epoch; every
+        ``checkpoint_every`` epochs a checkpoint is written."""
         cfg = self.cfg
         if cfg.lr_finder is not None:
             lr = self.lr_find(cfg.lr_finder)
-            print(f"Optimized learning rate: {lr}")
+            self.print(f"Optimized learning rate: {lr}")
             self.init_state(lr=lr)
         elif self.optimizer is None:
             self.init_state()
+        start_epoch = 0
+        if cfg.resume:
+            latest = ckpt.latest_checkpoint(self.checkpoint_dir())
+            if latest is not None:
+                self.restore_checkpoint(ckpt.load_checkpoint(self.checkpoint_dir(), latest))
+                start_epoch = latest
+                self.print(f"Resumed from epoch {start_epoch}")
         best_metric = None
         smooth_loss, smooth_count, beta = 0.0, 0, 0.98  # fastai AvgSmoothLoss
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.monotonic()
-            with device_trace(cfg.profile_dir if epoch == 0 else None, self.device,
-                              f"{cfg.description}_epoch0"):
+            traced = cfg.profile_dir if epoch == start_epoch and self.primary else None
+            with device_trace(traced, self.device, f"{cfg.description}_epoch{epoch}"):
                 losses = []
                 batches = iter(self.train_loader)
                 while True:
@@ -386,16 +480,56 @@ class Trainer:
                 row.update(self.evaluate())
             row["time"] = _fmt_time(time.monotonic() - t0)
             self.history.append(row)
-            print("  ".join(f"{k}={v if isinstance(v, str) else round(v, 5)}"
-                            for k, v in row.items()))
+            self.print("  ".join(f"{k}={v if isinstance(v, str) else round(v, 5)}"
+                                 for k, v in row.items()))
             current = row[self.monitor]
             if best_metric is None or self.comp(current, best_metric):
                 best_metric = current
                 self.best_state = {k: v.detach().cpu().clone()
                                    for k, v in self.model.state_dict().items()}
+            if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0 \
+                    and self.primary:
+                ckpt.save_checkpoint(self.checkpoint_dir(), epoch + 1,
+                                     self.checkpoint_state(epoch + 1))
         if self.best_state is not None:  # SaveModelCallback: restore the best epoch
             self.model.load_state_dict(self.best_state)
         return self.history
+
+    # --- step checkpoints ------------------------------------------------------------
+
+    def checkpoint_dir(self) -> Path:
+        return Path(self.cfg.model_path) / self.cfg.description / "checkpoints"
+
+    def checkpoint_state(self, epoch: int) -> Dict[str, Any]:
+        """The state a step checkpoint holds (``train/checkpoint.py``): the
+        weights and running statistics, Adam's moments as flax ``params``
+        trees, the optimizer's step count and ``epoch``."""
+        sd = self.model.state_dict()
+        names = self.optimizer.names
+
+        def params_tree(tensors):
+            # the running statistics tell BatchNorm parameters from kernels
+            moments = {k: v for k, v in sd.items() if k.endswith(".running_mean")}
+            moments.update(zip(names, tensors))
+            return ckpt.to_flax_variables(moments)["params"]
+
+        state = ckpt.to_flax_variables(sd)
+        state["opt_state"] = {"mu": params_tree(self.optimizer.mu),
+                              "nu": params_tree(self.optimizer.nu)}
+        state["step"] = np.int64(self.optimizer.count)
+        state["epoch"] = np.int64(epoch)
+        return state
+
+    def restore_checkpoint(self, state: Dict[str, Any]) -> None:
+        """Load a ``checkpoint_state`` tree into the model and the optimizer
+        (which ``init_state`` made)."""
+        self.set_weights({"params": state["params"], "batch_stats": state["batch_stats"]})
+        opt = self.optimizer
+        for key, moments in (("mu", opt.mu), ("nu", opt.nu)):
+            named = ckpt.from_flax_variables({"params": state["opt_state"][key]})
+            for name, t in zip(opt.names, moments):
+                t.copy_(torch.from_numpy(np.asarray(named[name])))
+        opt.count = int(state["step"])
 
     # --- lr finder -------------------------------------------------------------------
 
@@ -501,9 +635,12 @@ class Trainer:
 
     def export(self) -> Path:
         """Write the bundle of the model as it stands (after ``fit``, the
-        best epoch's weights)."""
+        best epoch's weights); under a process group rank 0 writes it and
+        every rank returns its directory."""
         cfg = self.cfg
         bundle_dir = Path(cfg.model_path) / cfg.description
+        if not self.primary:
+            return bundle_dir
         ckpt.export_bundle(bundle_dir, cfg.description,
                            ckpt.to_flax_variables(self.model.state_dict()),
                            self.manifest())
@@ -525,15 +662,77 @@ class Trainer:
         return bundle_dir
 
 
+def layer_table(model: torch.nn.Module, x: torch.Tensor, depth: int = 2) -> List[str]:
+    """One line per named module down to ``depth`` levels: its name, type,
+    output shape in one eval forward of ``x``, and parameter count."""
+    rows: List[Tuple[str, str, str, int]] = []
+
+    def hook(name):
+        def fn(mod, _inp, out):
+            shape = tuple(out.shape) if isinstance(out, torch.Tensor) else \
+                [tuple(o.shape) for o in out if isinstance(o, torch.Tensor)]
+            rows.append((name, type(mod).__name__, str(shape),
+                         sum(p.numel() for p in mod.parameters())))
+        return fn
+
+    handles = [m.register_forward_hook(hook(name)) for name, m in model.named_modules()
+               if name and name.count(".") < depth]
+    training = model.training
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train(training)
+        for h in handles:
+            h.remove()
+    width = max(len(r[0]) for r in rows)
+    lines = [f"{'module':<{width}}  {'type':<22} {'output shape':<24} params"]
+    lines += [f"{n:<{width}}  {t:<22} {s:<24} {p:,}" for n, t, s, p in rows]
+    return lines
+
+
+def model_summary(trainer: Trainer) -> str:
+    """``<desc>_model_summary.txt``: JAX's class weights, architecture,
+    input, total and per-module parameter counts (over the top-level keys
+    of the flax ``params`` tree), then the port's layer table."""
+    cfg = trainer.cfg
+    params = ckpt.to_flax_variables(trainer.model.state_dict())["params"]
+    per_module = {k: sum(int(np.asarray(a).size) for _, a in _leaves(v))
+                  for k, v in params.items()}
+    lines = [f"Class_weights: {trainer.class_weights}",
+             f"Architecture: {cfg.arch}",
+             f"Input: {trainer.tile_hw} x {trainer.c_in} bands -> {trainer.n_out} outputs",
+             f"Total parameters: {sum(per_module.values()):,}", "", "Per-module parameters:"]
+    lines += [f"  {k}: {v:,}" for k, v in sorted(per_module.items())]
+    x = torch.zeros((1, trainer.c_in, *trainer.tile_hw), device=trainer.device)
+    lines += ["", *layer_table(trainer.model, x)]
+    return "\n".join(lines) + "\n"
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
 def train_model(cfg: TrainerConfig, trainer: Optional[Trainer] = None) -> Path:
-    """Build a trainer (unless given), fit, export the bundle; returns the
-    bundle directory."""
+    """Build a trainer (unless given), fit, export the bundle and, with
+    ``export_model_summary``, the model summary; returns the bundle
+    directory."""
     trainer = trainer or Trainer(cfg)
     try:
-        print(f"Train files: {trainer.dataset.n_train}, Test files: {trainer.dataset.n_valid}")
+        trainer.print(f"Train files: {trainer.dataset.n_train}, "
+                      f"Test files: {trainer.dataset.n_valid}")
         if not trainer.cfg.regression:
-            print(f"Class weights: {trainer.class_weights}")
+            trainer.print(f"Class weights: {trainer.class_weights}")
         trainer.fit()
-        return trainer.export()
+        out = trainer.export()
+        if trainer.cfg.export_model_summary and trainer.primary:
+            (out / f"{trainer.cfg.description}_model_summary.txt").write_text(
+                model_summary(trainer))
+        return out
     finally:
         trainer.close()

@@ -17,6 +17,14 @@ the model's channel 0, with float targets of the same shape.
 * ``dice_loss``: fastai's DiceLoss, softmax probabilities in float32,
   ``1 − dice`` per (sample, class) summed (``reduction='sum'``).
 
+Under a process group (``group``: the ranks of one data-parallel step,
+each holding an equal share of the batch) each normalized loss divides the
+rank's numerator by the denominator summed over the ranks (Σw[y] for
+cross-entropy, the pixel count for focal and the regression losses), so
+the ranks' losses add up to the global batch's loss and their summed
+gradients to its gradient, as GSPMD computes them in JAX. The dice loss is
+a sum of per-sample terms and needs no denominator.
+
 ``fold_loss_layout`` lays out the sub-pixel head's pre-shuffle logits and
 the full-resolution targets so the loss computes the full-resolution value
 without a pixel shuffle.
@@ -24,9 +32,12 @@ without a pixel shuffle.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from ..parallel.mesh import all_reduce_sum
 
 CROSS_ENTROPY_NAMES = ("cross_entropy", "crossentropylossflat", "ce")
 
@@ -46,7 +57,7 @@ def fold_loss_layout(logits: torch.Tensor,
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   weight: Optional[torch.Tensor] = None,
-                  sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  sample_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """torch ``F.cross_entropy(..., weight, reduction='mean')`` in float32;
     ``sample_mask`` (B,) bool leaves padded samples out."""
     c = logits.shape[1]
@@ -59,12 +70,12 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         w = w * weight[t.clamp(0, c - 1)]
     if sample_mask is not None:
         w = w * sample_mask.float().view(-1, *([1] * (w.dim() - 1)))
-    return (w * nll).sum() / w.sum()
+    return (w * nll).sum() / all_reduce_sum(w.sum(), group)
 
 
 def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
                weight: Optional[torch.Tensor] = None,
-               sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               sample_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """fastai FocalLoss in float32: ``((1 - exp(-ce))**gamma * ce).mean()``
     with ce = w[y]·nll, the class weight applied before ``exp``. The mean
     runs over every pixel of the samples ``sample_mask`` (B,) keeps, not
@@ -80,7 +91,7 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor, gamma: float = 2.0,
     m = torch.ones_like(nll)
     if sample_mask is not None:
         m = m * sample_mask.float().view(-1, *([1] * (m.dim() - 1)))
-    return ((1.0 - torch.exp(-nll)) ** gamma * nll * m).sum() / m.sum()
+    return ((1.0 - torch.exp(-nll)) ** gamma * nll * m).sum() / all_reduce_sum(m.sum(), group)
 
 
 def _pixel_mask(vals: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -90,29 +101,30 @@ def _pixel_mask(vals: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torc
     return sample_mask.float().view(-1, *([1] * (vals.dim() - 1))).expand_as(vals)
 
 
-def _masked_mean(vals: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(vals: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                 group=None) -> torch.Tensor:
     m = _pixel_mask(vals, sample_mask)
-    return (vals * m).sum() / m.sum()
+    return (vals * m).sum() / all_reduce_sum(m.sum(), group)
 
 
 def mse_loss(preds: torch.Tensor, targets: torch.Tensor,
-             sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sample_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """MSELossFlat."""
-    return _masked_mean((preds.float() - targets.float()) ** 2, sample_mask)
+    return _masked_mean((preds.float() - targets.float()) ** 2, sample_mask, group)
 
 
 def l1_loss(preds: torch.Tensor, targets: torch.Tensor,
-            sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            sample_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """L1LossFlat."""
-    return _masked_mean((preds.float() - targets.float()).abs(), sample_mask)
+    return _masked_mean((preds.float() - targets.float()).abs(), sample_mask, group)
 
 
 def smooth_l1_loss(preds: torch.Tensor, targets: torch.Tensor, beta: float = 0.5,
-                   sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   sample_mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """The reference's ``Smoothl1``: torch SmoothL1Loss with β = 0.5."""
     d = (preds.float() - targets.float()).abs()
     return _masked_mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta),
-                        sample_mask)
+                        sample_mask, group)
 
 
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1e-6,
@@ -142,21 +154,23 @@ LOSSES = {"mse": (mse_loss, ("mse", "mselossflat")),
 
 
 def build_loss(name: Optional[str], weight: Optional[torch.Tensor] = None,
-               regression: bool = False) -> Callable[..., torch.Tensor]:
+               regression: bool = False, group=None) -> Callable[..., torch.Tensor]:
     """The loss by name, with the reference's defaults: None → MSE for
     regression, weighted cross-entropy otherwise; focal → weighted focal
     loss with γ = 2; mse, l1, smooth_l1 and dice (and their fastai class
-    names) unweighted."""
+    names) unweighted. ``group``: the process group whose ranks share the
+    batch (None for one process)."""
     if name is None:
         name = "mse" if regression else "cross_entropy"
     key = name.lower()
     if key in CROSS_ENTROPY_NAMES:
-        return lambda lg, t, sample_mask=None: cross_entropy(lg, t, weight, sample_mask)
+        return lambda lg, t, sample_mask=None: cross_entropy(lg, t, weight, sample_mask,
+                                                             group)
     if key in FOCAL_NAMES:
         return lambda lg, t, sample_mask=None: focal_loss(lg, t, FOCAL_GAMMA, weight,
-                                                          sample_mask)
+                                                          sample_mask, group)
     for fn, names in LOSSES.values():
         if key in names:
-            return fn
+            return fn if group is None or fn is dice_loss else functools.partial(fn, group=group)
     raise ValueError(f"Unknown loss {name!r}; options: "
                      f"{sorted(['cross_entropy', 'focal', *LOSSES])}")

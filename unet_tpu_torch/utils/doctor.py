@@ -9,6 +9,9 @@ the report has the same format. The checks:
   capability, which must be 9.0: every kernel is built for ``sm_90a``
   only. Without a card the check fails with "no CUDA device", and nothing
   runs on the CPU instead;
+* ``mesh`` — a one-process group on a free localhost port (NCCL on the
+  card, gloo for ``device="cpu"``) all-reduces a tensor on the device and
+  is torn down; inside a process group it reports that group instead;
 * ``toolchain`` (the counterpart of the compile-cache check) — nvcc's path
   and version, and the kernel build directory with its cached libraries;
 * ``native decoder`` — its ABI version, or the build error;
@@ -16,8 +19,8 @@ the report has the same format. The checks:
   every CUDA kernel built, launched once and compared with its plain
   version.
 
-``versions`` and ``devices`` are blocking. The JAX package's ``mesh``
-check waits for the port's data parallelism. Its ``optional deps`` check
+``versions``, ``devices`` and ``mesh`` are blocking. The JAX package's
+``optional deps`` check
 has no counterpart: the port's one optional module, PIL, only reads TIFF
 features outside the codec, and a machine without it is still ready.
 """
@@ -66,6 +69,33 @@ def _devices() -> Tuple[bool, str]:
     return ok, f"{torch.cuda.device_count()} CUDA device(s): " + "; ".join(parts)
 
 
+def _mesh(device: str = "cuda") -> Tuple[bool, str]:
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        return False, "no CUDA device: no data-parallel world to build"
+    where = (f"{torch.cuda.device_count()} CUDA devices" if dev.type == "cuda"
+             else "the CPU")
+    own = not dist.is_initialized()
+    if own:
+        mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0, device=dev)
+    try:
+        t = torch.ones(4, device=mesh.rank_device(dev))
+        dist.all_reduce(t)
+        world = dist.get_world_size()
+        if t.sum().item() != 4 * world:
+            return False, f"all-reduce over {world} ranks gave {t.tolist()}"
+        return True, (f"data-parallel world of {world} over {where}, backend "
+                      f"{dist.get_backend()}")
+    finally:
+        if own:
+            mesh.close_distributed()
+
+
 def _toolchain() -> Tuple[bool, str]:
     from ..ops import _build
 
@@ -96,14 +126,16 @@ def _kernels() -> Tuple[bool, str]:
                       for name, (ok, detail) in results.items()))
 
 
-def run_doctor(kernels: bool = False) -> Dict[str, Tuple[bool, str]]:
+def run_doctor(kernels: bool = False, device: str = "cuda") -> Dict[str, Tuple[bool, str]]:
     """Run every check; print a report; return {name: (ok, detail)}.
 
     ``kernels=True`` also builds and checks every CUDA kernel on the card
-    (a few seconds of nvcc, hence opt-in)."""
+    (a few seconds of nvcc, hence opt-in). ``device`` is where the ``mesh``
+    check builds its group (``cpu``: gloo on the CPU)."""
     checks: List[Tuple[str, Callable]] = [
         ("versions", _versions),
         ("devices", _devices),
+        ("mesh", lambda: _mesh(device)),
         ("toolchain", _toolchain),
         ("native decoder", _native),
     ]
@@ -114,7 +146,7 @@ def run_doctor(kernels: bool = False) -> Dict[str, Tuple[bool, str]]:
         ok, detail = _check(fn)
         results[name] = (ok, detail)
         print(f"  {'ok ' if ok else 'FAIL'}  {name:<16} {detail}")
-    hard = [n for n in ("versions", "devices") if not results[n][0]]
+    hard = [n for n in ("versions", "devices", "mesh") if not results[n][0]]
     print("doctor: " + ("all checks passed" if all(ok for ok, _ in results.values())
                         else f"issues found{' (blocking: ' + ', '.join(hard) + ')' if hard else ''}"))
     return results
