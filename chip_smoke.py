@@ -164,6 +164,32 @@ Phases (any failure raises and the script exits nonzero), in this order:
      ``UNET_TPU_TORCH_BACKEND=gloo`` for 1 epoch, one bundle, rank 0's
      launches; (d) ``doctor``'s mesh check (NCCL, world 1); offset_copy's
      launches over the phase counted; the phase's seconds;
+  11. serving artifacts and model variants: (a) ``python -m unet_tpu_torch
+     export`` of 9b's focal-trained flagship bundle to a float artifact
+     (``--platforms cpu,cuda``) and an int8 one (``--quantize int8``),
+     side by side: seconds, artifact, program and weight bytes, the int8
+     artifact < 0.35 of the float one and the program < 10% of the
+     weights; (b) the 4096² scene through the float artifact: ``serve``
+     through the CLI on the whole tier (tier and blend_count launches
+     checked, tiles/s beside phase 4's CLI serve), the artifact's and the
+     bundle's load and first batch timed in this process, then both warm
+     on the whole tier, streamed and with TTA (tiles/s, launches; bf16
+     maps >= 99.99% equal through the same batches); an
+     artifact exported in this process at float32 against a float32
+     ``Predictor`` with TF32 off (all-class mosaic within 1e-5, class maps
+     all equal); the int8 artifact's class agreement with the bundle >
+     0.97; (c) ``predict --merge --device-merge`` with the artifact on 9b's
+     prediction tiles, >= 99.99% equal to the bundle's device merge, and in
+     this process at float32 (TF32 off) with one launch a batch; (d) a
+     flagship trainer at 16 × 512² bf16 for ``UNET_TPU_BN`` unset,
+     ``slice:8`` and ``group:32``: step ms, launches a step (43 / 43 / 1;
+     group 0 / 0 / 1), a kernel step against a plain step (the bars of 8);
+     the slice variant's float32 running statistics equal to those of the
+     first 8 samples of each site's input; (e) remat: a float32 step (TF32
+     off) with and without it from the same weights and batch, loss,
+     gradients and running statistics compared (bit-equal expected; the
+     statistics must be), bn_sum_sumsq launched 43 + 39 recomputed sites,
+     peak card memory of both, then bf16 step ms and peak memory of both;
   10. last, as the profiler slows later launches: the device time of every
      kernel, its plain version and its library call at the shapes above
      (the union of the traced device intervals, host overhead left out;
@@ -191,6 +217,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import importlib
 import importlib.util
 import json
@@ -2811,6 +2838,501 @@ def mesh_doctor_phase() -> dict:
     return {"mesh": detail}
 
 
+ART_INT8_RATIO = 0.35  # int8 / float artifact bytes, the JAX package's bar (tests/test_artifact.py)
+ART_INT8_AGREE = 0.97  # int8 artifact class agreement with the live bundle (tests/test_artifact.py)
+ART_PROB_ATOL = 1e-5   # float32 artifact against the live bundle, TF32 off
+VARIANTS = ("", "slice:8", "group:32")  # phase 11d's UNET_TPU_BN values ("" = unset)
+SLICE_K = 8
+VARIANT_STEPS = 3      # timed steps of each variant and of remat on/off
+
+
+def artifact_export_phase(tmp: Path, bundle: Path) -> dict:
+    """11a: ``python -m unet_tpu_torch export`` of ``bundle`` to a float
+    artifact (``--platforms cpu,cuda``) and an int8 one, the two processes
+    side by side: each one's wall seconds and printed export seconds, the
+    artifact's bytes, its program's and its weights' bytes; int8 below
+    ART_INT8_RATIO of the float artifact, the program under 10% of the
+    weights."""
+    arts = {"float": tmp / "flagship.uta", "int8": tmp / "flagship_int8.uta"}
+    extra = {"float": ["--platforms", "cpu,cuda"], "int8": ["--quantize", "int8"]}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        futs = {k: pool.submit(run_cli, ["export", bundle, path, *extra[k]], f"export {k}",
+                               True) for k, path in arts.items()}
+        runs = {k: f.result() for k, f in futs.items()}
+    out = {"paths": arts}
+    for k, path in arts.items():
+        wall, stdout = runs[k]
+        said = re.search(r"MB, ([0-9.]+) s\)", stdout)
+        with np.load(path, allow_pickle=False) as z:
+            header = json.loads(bytes(z["__utaot__"]).decode("utf-8"))
+            program = z["__program__"].nbytes
+            weights = sum(z[n].nbytes for n in z.files if n[0] in "ws")
+            n_values = sum(z[n].size for n in z.files if n[0] == "w")
+        out[k] = {"bytes": path.stat().st_size, "program_bytes": program,
+                  "weights_bytes": weights, "values": n_values, "wall_s": wall,
+                  "export_s": float(said.group(1)) if said else None,
+                  "platforms": header["platforms"], "dtype": header["dtype"]}
+        print(f"export {k} (CLI, {header['dtype']}, platforms {header['platforms']}): "
+              f"{wall:.1f} s with process start, export {out[k]['export_s']} s; artifact "
+              f"{out[k]['bytes']} bytes: program {program}, weights {weights} "
+              f"({n_values} values, {len(header['quantized'])} leaves int8)")
+    ratio = out["int8"]["bytes"] / out["float"]["bytes"]
+    out["int8_ratio"] = ratio
+    print(f"int8 / float artifact bytes {ratio:.4f} (bar < {ART_INT8_RATIO}); program / "
+          f"weights {out['float']['program_bytes'] / out['float']['weights_bytes']:.4f}")
+    if ratio >= ART_INT8_RATIO:
+        raise AssertionError(f"int8 artifact is {ratio:.3f} of the float one")
+    if out["float"]["program_bytes"] > 0.1 * out["float"]["weights_bytes"]:
+        raise AssertionError("the program is not under 10% of the weights")
+    return out
+
+
+def serve_map(pred, scene: Path, out=None, streamed: bool = False, **kw):
+    """``predict_raster`` (or ``predict_raster_streamed``) of ``scene``
+    through ``pred`` in this process: (output, seconds, blend_count
+    launches, the scene's record), the launch count set to 0 just before."""
+    from unet_tpu_torch.ops.blend import blend_and_count
+    from unet_tpu_torch.predict import predict as pp
+
+    blend_and_count.launches = 0
+    t0 = time.perf_counter()
+    if streamed:
+        pp.predict_raster_streamed(None, str(scene), str(out), patch_size=PATCH,
+                                   batch_size=BATCH, predictor=pred, device=pred.device)
+        arr = None
+    else:
+        arr = pp.predict_raster(None, str(scene), None if out is None else str(out),
+                                patch_size=PATCH, batch_size=BATCH, predictor=pred,
+                                device=pred.device, **kw)[0]
+    torch.cuda.synchronize()
+    return arr, time.perf_counter() - t0, blend_and_count.launches, pred.scenes[-1]
+
+
+def artifact_serve_phase(dev, tmp: Path, bundle: Path, arts: dict, transform, crs,
+                         live_cli: dict, pred_tiles: Path) -> dict:
+    """11b: the 4096² scene through the float artifact. Cold through
+    ``python -m unet_tpu_torch serve`` (the whole tier) and, after each
+    one's load and first batch are timed, warm in this process (whole
+    tier, streamed, ``--tta``) beside the live bundle's warm serves:
+    tiles/s, blend_count launches (one a batch on the whole tier, one an
+    add on the band), the bf16 maps >= AGREE equal to the bundle's through
+    the same batches; in float32 with TF32 off an artifact exported here
+    against a float32 ``Predictor``: class maps all equal, probabilities
+    within ART_PROB_ATOL; the int8 artifact's class agreement with the
+    bundle > ART_INT8_AGREE. 11c's ``predict`` CLI runs beside the float32
+    export and the loads (``out["predict_cli"]``: its seconds and
+    output)."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.predict import predict as pp
+    from unet_tpu_torch.predict.artifact import export_artifact, load_artifact
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    scene = tmp / "scene.tif"
+    n_win = len(generate_windows(SCENE, SCENE, PATCH, 0.2))
+    n_batches = -(-n_win // BATCH)
+    out = tmp / "art_cold.tif"
+    t0 = time.perf_counter()
+    stats = serve_cli(arts["float"], scene, out, tmp / "art_cold.json")
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live = pp.Predictor(str(bundle), batch_size=BATCH, device=dev)
+    torch.cuda.synchronize()
+    load_s = {"bundle": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    art = load_artifact(str(arts["float"]), batch_size=BATCH, device=dev)
+    torch.cuda.synchronize()
+    load_s["artifact"] = time.perf_counter() - t0
+    x0 = read_raster(scene).data[:, :PATCH, :PATCH].transpose(1, 2, 0)[None].repeat(BATCH, 0)
+    for name, pred in (("bundle", live), ("artifact", art)):
+        t0 = time.perf_counter()
+        pred.predict_batch(x0)
+        load_s[f"{name}_first_batch"] = time.perf_counter() - t0
+    classes = check_class_map(out, transform, crs)
+    rec = stats["scenes"][0]
+    if stats["launches"]["blend_count"] != n_batches or rec["tier"] != "full":
+        raise AssertionError(f"artifact serve CLI: tier {rec['tier']}, blend_count "
+                             f"{stats['launches']['blend_count']} for {n_batches}")
+    cold = {"tiles_per_s": stats["tiles_per_s"], "seconds": stats["seconds"], "cli_s": cli_s,
+            "launches": stats["launches"]["blend_count"], "map": read_raster(out).data[0]}
+    print(f"artifact serve CLI (bf16): {stats['tiles_per_s']:.1f} tiles/s over "
+          f"{stats['seconds']:.2f} s of serve, {cli_s:.2f} s with process start and load "
+          f"(phase 4's CLI serve of a bundle: "
+          f"{live_cli['tiles_per_s']:.1f} tiles/s); tier {rec['tier']}; blend_count launches "
+          f"{cold['launches']}; peak card memory "
+          f"{(stats['peak_device_bytes'] or 0) / 1e9:.2f} GB; classes {classes}")
+    print("load seconds in process: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in load_s.items()))
+    warm = {}
+    for name, pred in (("bundle", live), ("artifact", art)):
+        serve_map(pred, scene)  # warm-up
+        arr, secs, n, rec = serve_map(pred, scene)
+        warm[name] = {"map": arr, "seconds": secs, "tiles_per_s": n_win / secs, "launches": n,
+                      "forward_ms": float(np.median(pred.forward_ms()[-n_batches:]))}
+        if n != n_batches or rec["tier"] != "full":
+            raise AssertionError(f"warm {name} serve: tier {rec['tier']}, {n} launches")
+    for name, pred in (("bundle_stream", live), ("artifact_stream", art)):
+        out = tmp / f"{name}_warm.tif"
+        _, secs, n, rec = serve_map(pred, scene, out, streamed=True)
+        warm[name] = {"seconds": secs, "tiles_per_s": n_win / secs, "launches": n,
+                      "map": read_raster(out).data[0]}
+        if n != rec["adds"]:
+            raise AssertionError(f"streamed {name} serve: {n} launches, {rec['adds']} adds")
+    n_stream = warm["artifact_stream"]["launches"]
+    tta = {}
+    art_tta = copy.copy(art)  # the loaded program and weights; the flips compose outside
+    art_tta.tta = True
+    for name, pred in (("bundle", pp.Predictor(str(bundle), batch_size=BATCH, device=dev,
+                                               tta=True)),
+                       ("artifact", art_tta)):
+        arr, secs, n, _ = serve_map(pred, scene)
+        tta[name] = {"map": arr, "seconds": secs, "tiles_per_s": n_win / secs, "launches": n}
+    # the same windows in the same batches: the streamed tier batches them
+    # in (y, x) order, so a stream is held against the bundle's stream
+    # (bf16 rounds by a window's place in its batch)
+    agree = {
+        "warm_vs_bundle": float((warm["artifact"]["map"] == warm["bundle"]["map"]).mean()),
+        "stream_vs_bundle_stream": float((warm["artifact_stream"]["map"]
+                                          == warm["bundle_stream"]["map"]).mean()),
+        "cold_vs_bundle": float((cold["map"] == warm["bundle"]["map"]).mean()),
+        "tta_vs_bundle_tta": float((tta["artifact"]["map"] == tta["bundle"]["map"]).mean()),
+    }
+    stream_vs_whole = float((warm["artifact_stream"]["map"] == warm["artifact"]["map"]).mean())
+    for name, w in (("bundle", warm["bundle"]), ("artifact", warm["artifact"]),
+                    ("bundle --stream", warm["bundle_stream"]),
+                    ("artifact --stream", warm["artifact_stream"]),
+                    ("bundle --tta", tta["bundle"]), ("artifact --tta", tta["artifact"])):
+        print(f"warm serve in process, {name} (bf16): {w['seconds']:.2f} s = "
+              f"{w['tiles_per_s']:.1f} tiles/s; blend_count launches {w['launches']}"
+              + (f"; a forward's median {w['forward_ms']:.2f} ms (CUDA events)"
+                 if "forward_ms" in w else ""))
+    print("artifact bf16 class maps equal to the bundle's: " + ", ".join(
+        f"{k} {100 * v:.4f}%" for k, v in agree.items())
+        + f" (streamed against whole-tier, other batches: {100 * stream_vs_whole:.4f}%, "
+        "not held)")
+    if min(agree.values()) < AGREE:
+        raise AssertionError(f"artifact maps agree {agree}")
+
+    # float32, TF32 off: an artifact exported in this process, on the card;
+    # 11c's predict CLI runs beside the export and the loads
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        predict_run = pool.submit(
+            run_cli, ["predict", arts["float"], pred_tiles, "--merge", "--device-merge",
+                      "--aoi", "art", "--year", "2026", "--batch-size", BATCH],
+            "predict --merge --device-merge with the artifact", True)
+        t0 = time.perf_counter()
+        art32_path = export_artifact(str(bundle), str(tmp / "flagship_f32.uta"),
+                                     dtype=torch.float32, device=dev)
+        export32_s = time.perf_counter() - t0
+        art32 = load_artifact(str(art32_path), batch_size=BATCH, device=dev)
+        live32 = pp.Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+        art8 = load_artifact(str(arts["int8"]), batch_size=BATCH, device=dev)
+        predict_cli = predict_run.result()
+    with tf32_off():
+        p_art = serve_map(art32, scene, all_classes=True)[0]
+        p_live = serve_map(live32, scene, all_classes=True)[0]
+    prob_err = float(np.abs(p_art - p_live).max())
+    cls_equal = float((p_art.argmax(0) == p_live.argmax(0)).mean())
+    print(f"float32 artifact (exported in process in {export32_s:.1f} s) vs float32 bundle, "
+          f"TF32 off, 4096² all-class mosaic: max |Δp| {prob_err:.3e}, class maps "
+          f"{100 * cls_equal:.4f}% equal")
+    if prob_err > ART_PROB_ATOL or cls_equal < 1.0:
+        raise AssertionError(f"float32 artifact: max |dp| {prob_err}, classes {cls_equal}")
+
+    arr8, secs8, _, _ = serve_map(art8, scene)
+    agree8 = float((arr8 == warm["bundle"]["map"]).mean())
+    print(f"int8 artifact serve (bf16 compute): {n_win / secs8:.1f} tiles/s; class maps "
+          f"{100 * agree8:.4f}% equal to the bundle's (bar > {100 * ART_INT8_AGREE:.0f}%)")
+    if agree8 <= ART_INT8_AGREE:
+        raise AssertionError(f"int8 artifact agrees on {agree8}")
+    return {"art32": art32, "live32": live32, "predict_cli": predict_cli,
+            "cold": cold, "warm": warm, "tta": tta,
+            "agree": agree, "prob_err": prob_err, "agree_int8": agree8,
+            "export32_s": export32_s, "load_s": load_s,
+            "launches": {"serve_cli_whole": cold["launches"],
+                         "serve_warm_whole": warm["artifact"]["launches"],
+                         "serve_warm_stream": n_stream,
+                         "serve_warm_tta": tta["artifact"]["launches"]}}
+
+
+def artifact_predict_phase(tmp: Path, arts: dict, pred_tiles: Path, bundle_mosaic: Path,
+                           art32, live32, predict_cli: tuple) -> dict:
+    """11c: ``python -m unet_tpu_torch predict --merge --device-merge`` with
+    the float artifact on the prediction tiles (run during 11b:
+    ``predict_cli`` is its seconds and output), its mosaic >= AGREE equal
+    to the bundle's bf16 device merge; in this process in float32 (TF32
+    off) the artifact's device merge against the bundle's, >= AGREE, with
+    blend_count launched once a batch."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops.blend import blend_and_count
+    from unet_tpu_torch.predict import predict as pp
+
+    n_tiles = len(list(pred_tiles.glob("*.tif")))
+    n_batches = -(-n_tiles // BATCH)
+    secs = predict_cli[0]
+    mosaic = pred_tiles.parent / f"art_2026_{arts['float'].stem}_prediction.tif"
+    agree_cli = float((read_raster(mosaic).data[0] == read_raster(bundle_mosaic).data[0]).mean())
+    maps, launches = {}, {}
+    with tf32_off(), quiet_stdout(tmp / "art_predict.log"):
+        for name, pred in (("artifact", art32), ("bundle", live32)):
+            blend_and_count.launches = 0
+            maps[name] = read_raster(pp.save_predictions(
+                str(arts["float"]), str(pred_tiles), merge=True, AOI=f"art32{name}",
+                year="2026", device_merge=True, predictor=pred)).data[0]
+            launches[name] = blend_and_count.launches
+            if launches[name] != n_batches:
+                raise AssertionError(f"device merge through the {name}: "
+                                     f"{launches[name]} launches for {n_batches}")
+    agree32 = float((maps["artifact"] == maps["bundle"]).mean())
+    print(f"predict CLI --merge --device-merge with the artifact: {n_tiles} tiles in "
+          f"{secs:.2f} s with process start (beside 11b's float32 export and loads); "
+          f"mosaic {100 * agree_cli:.4f}% equal to the bundle's (bf16); in process float32 "
+          f"(TF32 off) {100 * agree32:.4f}%; "
+          f"blend_count launches {launches['artifact']} ({n_batches} batches)")
+    if min(agree_cli, agree32) < AGREE:
+        raise AssertionError(f"artifact device merge agrees on {agree_cli} / {agree32}")
+    return {"agree_cli": agree_cli, "agree32": agree32, "launches": launches["artifact"],
+            "cli_s": secs}
+
+
+@contextlib.contextmanager
+def bn_variant(value: str):
+    """``UNET_TPU_BN`` set to ``value`` ("" unsets it) inside the block."""
+    old = os.environ.pop("UNET_TPU_BN", None)
+    if value:
+        os.environ["UNET_TPU_BN"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("UNET_TPU_BN", None)
+        if old is not None:
+            os.environ["UNET_TPU_BN"] = old
+
+
+def variant_trainer(tiles: Path, tmp: Path, **cfg):
+    from unet_tpu_torch.train.loop import Trainer, TrainerConfig
+
+    trainer = Trainer(TrainerConfig(
+        data_path=tiles, model_path=tmp / "variants", description="variants",
+        codes=("background", "building", "vegetation"), arch="xresnet34",
+        batch_size=BATCH, epochs=1, lr=1e-3, seed=SEED, **cfg))
+    trainer.init_state()
+    return trainer
+
+
+def timed_steps(trainer, host: list, n: int = VARIANT_STEPS) -> tuple:
+    """(median step ms after the first, launches of the last step as
+    (bn_sum_sumsq, bn_bwd_sums, flip_scale), peak card memory bytes) of
+    ``n`` train steps."""
+    from unet_tpu_torch.ops import aug, bn
+
+    counters = (bn.bn_sum_sumsq, bn.bn_bwd_sums, aug.fused_flip_scale)
+    first = len(trainer.step_ms())
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n):
+        for f in counters:
+            f.launches = 0
+        trainer.train_step(*host[i % len(host)])
+    ms = trainer.step_ms()[first:]
+    return (float(np.median(ms[1:])), tuple(f.launches for f in counters),
+            torch.cuda.max_memory_allocated())
+
+
+def slice_stats_check(dev) -> dict:
+    """The flagship at float32 under ``slice:SLICE_K``, one training forward
+    of a seeded 16 × 512² batch: every BatchNorm's running mean and
+    variance equal 0.9·init + 0.1·(the statistics of its input's first
+    SLICE_K samples, float64 here), within 1e-5·(1 + |value|); the
+    distance to the whole batch's statistics printed beside."""
+    from unet_tpu_torch.models import build_unet, init_weights
+    from unet_tpu_torch.models.layers import SliceBatchNorm
+
+    with bn_variant(f"slice:{SLICE_K}"):
+        model = build_unet("xresnet34", n_out=N_OUT, c_in=3, dtype=torch.float32)
+    init_weights(model, torch.Generator().manual_seed(SEED))
+    model.to(dev).train()
+    want, hooks = {}, []
+
+    def hook(name):
+        def fn(mod, inp):
+            x = inp[0].double()
+            stats = []
+            for xs in (x[:SLICE_K], x):
+                mean = xs.mean(dim=(0, 2, 3))
+                var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0)
+                stats.append((0.9 * mod.running_mean.double() + 0.1 * mean,
+                              0.9 * mod.running_var.double() + 0.1 * var))
+            want[name] = stats
+        return fn
+
+    sites = [(n, m) for n, m in model.named_modules() if isinstance(m, SliceBatchNorm)]
+    hooks = [m.register_forward_pre_hook(hook(n)) for n, m in sites]
+    x = torch.rand((BATCH, 3, PATCH, PATCH), generator=torch.Generator(device=dev)
+                   .manual_seed(SEED), device=dev)
+    with torch.no_grad(), tf32_off():
+        model(x, fold_logits=True)
+    for h in hooks:
+        h.remove()
+    err = full = 0.0
+    for name, m in sites:
+        (rm, rv), (fm, fv) = want[name]
+        for got, w, f in ((m.running_mean, rm, fm), (m.running_var, rv, fv)):
+            err = max(err, float(((got.double() - w).abs() / (1 + w.abs())).max()))
+            full = max(full, float(((got.double() - f).abs() / (1 + f.abs())).max()))
+    print(f"slice:{SLICE_K} float32 running statistics at {len(sites)} sites: within "
+          f"{err:.2e} (relative to 1 + |value|) of the first {SLICE_K} samples' "
+          f"statistics; {full:.2e} from the whole batch's")
+    if err > 1e-5 or len(sites) != 43:
+        raise AssertionError(f"slice running statistics off by {err} at {len(sites)} sites")
+    return {"err": err, "full_batch_dist": full, "sites": len(sites)}
+
+
+def variant_phase(dev, tiles: Path, tmp: Path) -> dict:
+    """11d: one flagship trainer (16 × 512², bf16) for each UNET_TPU_BN
+    value of VARIANTS: step ms, launches a step (unset and slice 43 / 43 /
+    1, group 0 / 0 / 1), a kernel step against a plain step (the bars of
+    8); then the slice variant's running statistics in float32. The unset
+    variant's trainer is returned open (``out["trainer"]``) for 11e."""
+    out = {}
+    for value in VARIANTS:
+        name = value or "unset"
+        with bn_variant(value):
+            trainer = variant_trainer(tiles, tmp)
+        keep = False
+        try:
+            host = [b[:2] for b in trainer.train_loader]
+            step_ms, launches, peak = timed_steps(trainer, host)
+            want = (0, 0, 1) if value.startswith("group") else (43, 43, 1)
+            print(f"UNET_TPU_BN={name}: step {step_ms:.2f} ms median of "
+                  f"{VARIANT_STEPS - 1} after the first (CUDA events); launches a step "
+                  f"bn_sum_sumsq/bn_bwd_sums/flip_scale {launches}; peak card memory "
+                  f"{peak / 2**30:.2f} GiB")
+            if launches != want:
+                raise AssertionError(f"UNET_TPU_BN={name}: launches {launches}, want {want}")
+            loss_rel, worst = step_check(trainer, host[0], f"UNET_TPU_BN={name}")
+            out[name] = {"step_ms": step_ms, "launches": launches, "peak_bytes": peak,
+                         "loss_rel": loss_rel, "grad_worst": worst}
+            keep = not value
+            if keep:
+                out["trainer"], out["host"] = trainer, host
+        finally:
+            if not keep:
+                trainer.close()
+    out["slice_stats"] = slice_stats_check(dev)
+    return out
+
+
+def set_remat(model, on: bool) -> None:
+    """Recompute the encoder's ResBlocks and the UnetBlocks in the backward."""
+    model.remat = model.encoder.remat = on
+
+
+def remat_phase(dev, tiles: Path, tmp: Path, bf16_trainer, host16: list) -> dict:
+    """11e: from the same float32 weights and augmented batch (TF32 off),
+    one ``loss_and_grads`` with remat off and one with it on: the running
+    statistics bit-equal, the loss and every gradient bit-equal or within
+    the bars of 8 (printed), bn_sum_sumsq launched 43 + the recomputed
+    sites' count and bn_bwd_sums 43 times, peak card memory of both; then
+    on ``bf16_trainer`` (11d's, closed here) steps with remat off and on:
+    step ms and peak memory."""
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import bn
+
+    trainer = variant_trainer(tiles, tmp, bf16=False)
+    try:
+        model = trainer.model
+        recomputed = sum(isinstance(m, BatchNorm)
+                         for blk in [model.encoder.get_submodule(n) for names in
+                                     model.encoder.block_names for n in names]
+                         + [model.get_submodule(f"up_{i}") for i in range(model.n_up)]
+                         for m in blk.modules())
+        host = [b[:2] for b in trainer.train_loader][0]
+        x, y = trainer.augment(*trainer.to_device(*host), "train",
+                               torch.Generator().manual_seed(5))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        runs = {}
+        for on in (False, True):
+            model.load_state_dict(state)
+            set_remat(model, on)
+            bn.bn_sum_sumsq.launches = bn.bn_bwd_sums.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with tf32_off():
+                loss = trainer.loss_and_grads(x, y).item()
+            runs[on] = {"loss": loss, "peak": torch.cuda.max_memory_allocated() - base,
+                        "grads": [p.grad.clone() for p in model.parameters()],
+                        "stats": {k: v.clone() for k, v in model.state_dict().items()
+                                  if "running" in k or k.endswith("_u")},
+                        "launches": (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)}
+        off, on_ = runs[False], runs[True]
+        grads_equal = all(torch.equal(a, b) for a, b in zip(off["grads"], on_["grads"]))
+        stats_equal = all(torch.equal(off["stats"][k], on_["stats"][k]) for k in off["stats"])
+        sq = sum(float(g.pow(2).sum()) for g in off["grads"])
+        diff = sum(float((a - b).pow(2).sum()) for a, b in zip(off["grads"], on_["grads"]))
+        loss_rel = abs(on_["loss"] - off["loss"]) / abs(off["loss"])
+        moved = max(float((state[k].float() - off["stats"][k].float()).abs().max())
+                    for k in off["stats"])
+        print(f"remat float32 (TF32 off) vs no remat, same weights and batch: loss "
+              f"{on_['loss']:.6f} vs {off['loss']:.6f} (rel {loss_rel:.2e}); gradients "
+              f"{'bit-equal' if grads_equal else f'relative L2 {(diff / sq) ** 0.5:.2e}'}; "
+              f"running statistics {'bit-equal' if stats_equal else 'differ'} after the "
+              f"step (moved up to {moved:.3e} from before it); launches "
+              f"bn_sum_sumsq/bn_bwd_sums {on_['launches']} with remat ({recomputed} "
+              f"recomputed sites), {off['launches']} without; peak card memory above the "
+              f"model's {on_['peak'] / 2**30:.2f} GiB with remat, {off['peak'] / 2**30:.2f} "
+              f"GiB without")
+        if not stats_equal or moved == 0.0:
+            raise AssertionError("remat: the running statistics did not move exactly once")
+        if loss_rel > 1e-3 or (diff / sq) ** 0.5 > GRAD_REL_L2:
+            raise AssertionError("remat: loss or gradients off")
+        if on_["launches"] != (43 + recomputed, 43) or off["launches"] != (43, 43):
+            raise AssertionError(f"remat launches {on_['launches']}, no remat {off['launches']}")
+    finally:
+        trainer.close()
+    try:
+        bf16 = {}
+        for on in (False, True):
+            set_remat(bf16_trainer.model, on)
+            bf16[on] = timed_steps(bf16_trainer, host16)
+    finally:
+        bf16_trainer.close()
+    print(f"remat bf16 steps: {bf16[True][0]:.2f} ms with remat, {bf16[False][0]:.2f} ms "
+          f"without (+{100 * (bf16[True][0] / bf16[False][0] - 1):.1f}%); peak card memory "
+          f"{bf16[True][2] / 2**30:.2f} GiB with, {bf16[False][2] / 2**30:.2f} GiB without; "
+          f"launches a step {bf16[True][1]} with, {bf16[False][1]} without")
+    return {"grads_equal": grads_equal, "stats_equal": stats_equal, "loss_rel": loss_rel,
+            "launches": on_["launches"], "recomputed": recomputed,
+            "peak_f32": (on_["peak"], off["peak"]),
+            "bf16_ms": (bf16[True][0], bf16[False][0]),
+            "bf16_peak": (bf16[True][2], bf16[False][2]),
+            "bf16_launches": bf16[True][1]}
+
+
+def artifact_variants_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path,
+                            bundle_mosaic: Path, tiles: Path, transform, crs,
+                            live_cli: dict) -> dict:
+    """Phase 11: serving artifacts (a-c), the BatchNorm variants (d) and
+    remat (e); offset_copy's launches in the phase (its count set to 0
+    just before); the phase's seconds."""
+    from unet_tpu_torch.ops import probe
+
+    t0 = time.perf_counter()
+    probe.offset_copy.launches = 0
+    exported = artifact_export_phase(tmp, bundle)
+    served = artifact_serve_phase(dev, tmp, bundle, exported["paths"], transform, crs,
+                                  live_cli, pred_tiles)
+    predicted = artifact_predict_phase(tmp, exported["paths"], pred_tiles, bundle_mosaic,
+                                       served.pop("art32"), served.pop("live32"),
+                                       served.pop("predict_cli"))
+    variants = variant_phase(dev, tiles, tmp)
+    remat = remat_phase(dev, tiles, tmp, variants.pop("trainer"), variants.pop("host"))
+    secs = time.perf_counter() - t0
+    print(f"phase 11: {secs:.1f} s; offset_copy launches {probe.offset_copy.launches}")
+    return {"export": exported, "serve": served, "predict": predicted,
+            "variants": variants, "remat": remat, "seconds": secs,
+            "offset_copy_launches": probe.offset_copy.launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3093,6 +3615,13 @@ def main() -> int:
               f"{run9['seconds']:.1f} s, two ranks {ddp['seconds']:.1f} s); doctor's mesh "
               f"check: {mesh_d['mesh']}")
 
+        log(f"-- phase 11 at {time.perf_counter() - t_start:.1f} s")
+        # 11. serving artifacts of 9b's trained bundle (export, serve,
+        # predict --device-merge), the BatchNorm variants, remat
+        art11 = artifact_variants_phase(dev, tmp, piped["bundle"], tiled["pred"],
+                                        tmp / "pipeline_device.tif", tiles, transform, crs,
+                                        stats)
+
         log(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
         # 10. under torch.profiler, after every kernel timing (the profiler
         # slows later launches): each kernel's device time, then the card's
@@ -3240,6 +3769,24 @@ def main() -> int:
            for i, k in enumerate(("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"))},
         "offset_copy": {"run_resume_ddp": run9["offset_copy_launches"]},
     }
+    var11, remat11 = art11["variants"], art11["remat"]
+    artifact_variants = {  # each kernel's launches in phase 11, counts set to 0 before each
+        "blend_count": {**art11["serve"]["launches"],
+                        "predict_device_merge": art11["predict"]["launches"]},
+        **{k: {**{f"bn_{v}_step": var11[v]["launches"][i]
+                  for v in ("unset", "slice:8", "group:32")},
+               "remat_step": (remat11["launches"] + (None,))[i],
+               "remat_bf16_step": remat11["bf16_launches"][i]}
+           for i, k in enumerate(("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"))},
+        "offset_copy": {"artifact_variants": art11["offset_copy_launches"]},
+    }
+    for kname in ("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"):
+        n = artifact_variants[kname]
+        if min(n["bn_unset_step"], n["bn_slice:8_step"], n["remat_bf16_step"]) <= 0:
+            raise AssertionError(f"{kname} was not launched on a path of phase 11: {n}")
+    if min(artifact_variants["blend_count"].values()) <= 0:
+        raise AssertionError(f"blend_count was not launched on an artifact path: "
+                             f"{artifact_variants['blend_count']}")
     for kname in ("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"):
         n = run_resume_ddp[kname]
         if n["run_main"] <= 0 or min(n["ddp_rank_step"]) <= 0 or n["ddp_cli_rank0"] <= 0:
@@ -3281,7 +3828,8 @@ def main() -> int:
          "launches": n, "max_abs_err": err, **dev_t[kname], "bound_ms": b_ms,
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
          "pipeline": pipeline[kname], "any_size": any_size[kname],
-         "train_surface": train_surface[kname], "run_resume_ddp": run_resume_ddp[kname]}
+         "train_surface": train_surface[kname], "run_resume_ddp": run_resume_ddp[kname],
+         "artifact_variants": artifact_variants[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

@@ -750,3 +750,111 @@ def test_synchronized_batch_norm_kernels_against_plain_over_two_ranks(dev, dtype
             torch.testing.assert_close(a, b[r * 8:(r + 1) * 8], **tol)
         for a, b in zip(res["kernel"][2:-1], whole[2:]):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_artifact_serves_on_the_card_like_the_bundle(dev, tmp_path):
+    """A float32 ``.uta`` of a tiny bundle, exported on the CPU and served
+    on the card (the program moved there), against the live float32
+    bundle on the card with TF32 off: probabilities within 1e-6 and class
+    maps equal, batches of 1, 3 and 5; blend_count launched by
+    ``predict_raster`` through the artifact once a batch."""
+    from unet_tpu_torch.predict import predict as pp
+    from unet_tpu_torch.predict.artifact import export_artifact, load_artifact
+
+    bundle = _tiny_bundle(tmp_path / "m")
+    uta = export_artifact(bundle, str(tmp_path / "m.uta"), dtype=torch.float32, device="cpu")
+    art = load_artifact(str(uta), batch_size=4, device=dev)
+    live = pp.Predictor(bundle, batch_size=4, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for n in (1, 3, 5):
+            x = rng.integers(0, 256, (n, 64, 64, 3)).astype(np.uint8)
+            np.testing.assert_allclose(art.predict_batch(x), live.predict_batch(x),
+                                       rtol=0, atol=1e-6)
+            assert torch.equal(art.predict_batch_device(x, argmax_u8=True),
+                               live.predict_batch_device(x, argmax_u8=True))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    from unet_tpu_torch.geo import write_raster
+
+    write_raster(tmp_path / "s.tif", rng.integers(0, 256, (3, 96, 128)).astype(np.uint8),
+                 transform=(0.0, 1.0, 0.0, 0.0, 0.0, -1.0), crs="EPSG:25832")
+    before = blend.blend_and_count.launches
+    out, _, _ = pp.predict_raster(None, str(tmp_path / "s.tif"), patch_size=64,
+                                  predictor=art, device=dev)
+    assert out.shape == (96, 128)
+    assert blend.blend_and_count.launches - before == art.scenes[-1]["adds"] > 0
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_slice_batch_norm_kernels_against_plain(dev, k):
+    """``SliceBatchNorm`` (``UNET_TPU_BN=slice:k``) at batch 4: one forward
+    launch over the first min(k, 4) samples and one backward launch over
+    all four, agreeing with the plain reductions (float32: rtol 1e-5); the
+    running mean equal to 0.1 × the prefix's mean."""
+    from unet_tpu_torch.models.layers import SliceBatchNorm
+    from unet_tpu_torch.ops import bn
+
+    x, dy = _bn_inputs((4, 16, 20, 24), torch.float32, dev, seed=2)
+    out = {}
+    for name, red in (("kernel", bn.KERNEL_REDUCTIONS), ("plain", bn.PLAIN_REDUCTIONS)):
+        m = SliceBatchNorm(16, n_stat=k).to(dev).train()
+        m.reductions = red
+        xi = x.clone().requires_grad_(True)
+        before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+        y = m(xi)
+        (y * dy).sum().backward()
+        launched = (bn.bn_sum_sumsq.launches - before[0], bn.bn_bwd_sums.launches - before[1])
+        out[name] = (y, xi.grad, m.weight.grad, m.bias.grad, m.running_mean, launched)
+    assert out["kernel"][-1] == (1, 1) and out["plain"][-1] == (0, 0)
+    for a, b in zip(out["kernel"][:-1], out["plain"][:-1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    want = 0.1 * x[:min(k, 4)].double().mean(dim=(0, 2, 3))
+    torch.testing.assert_close(out["kernel"][4].double(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_remat_step_moves_running_statistics_once(dev):
+    """The xresnet18 tpu_opt U-Net at float32 (TF32 off), batch 4 × 64²:
+    with remat the running statistics after one step equal those without
+    it bit for bit, the loss within 1e-6 relative and the gradients within
+    1e-5 relative L2; bn_sum_sumsq launched once a site plus once a site
+    inside a recomputed block, bn_bwd_sums once a site."""
+    from unet_tpu_torch.models import build_unet, init_weights
+    from unet_tpu_torch.models.layers import BatchNorm
+    from unet_tpu_torch.ops import bn
+    from unet_tpu_torch.train.losses import cross_entropy, fold_loss_layout
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((4, 3, 64, 64), generator=g, device=dev)
+    y = torch.randint(0, 3, (4, 64, 64), generator=g, device=dev)
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for remat in (False, True):
+            model = build_unet("xresnet18", n_out=3, c_in=3, dtype=torch.float32, remat=remat)
+            init_weights(model, torch.Generator().manual_seed(0))
+            model.to(dev).train()
+            before = (bn.bn_sum_sumsq.launches, bn.bn_bwd_sums.launches)
+            loss = cross_entropy(*fold_loss_layout(model(x, fold_logits=True), y))
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = (bn.bn_sum_sumsq.launches - before[0], bn.bn_bwd_sums.launches - before[1])
+            out[remat] = (loss.item(), [p.grad.clone() for p in model.parameters()],
+                          {k: v.clone() for k, v in model.state_dict().items()
+                           if "running" in k}, launched)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    sites = sum(isinstance(m, BatchNorm) for m in model.modules())
+    blocks = [model.encoder.get_submodule(n) for names in model.encoder.block_names
+              for n in names] + [model.get_submodule(f"up_{i}") for i in range(model.n_up)]
+    inside = sum(isinstance(m, BatchNorm) for b in blocks for m in b.modules())
+    assert out[False][3] == (sites, sites) and out[True][3] == (sites + inside, sites)
+    for k, v in out[False][2].items():
+        assert torch.equal(out[True][2][k], v), k
+    assert abs(out[True][0] - out[False][0]) <= 1e-6 * abs(out[False][0])
+    num = sum(float((a - b).pow(2).sum()) for a, b in zip(out[True][1], out[False][1]))
+    den = sum(float(b.pow(2).sum()) for b in out[False][1])
+    assert (num / den) ** 0.5 <= 1e-5

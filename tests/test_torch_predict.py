@@ -247,8 +247,7 @@ def test_resident_predictor_and_unported_arguments(setup, tmp_path):
                             device="cpu", dtype=torch.float32)
     assert a == b
     for kw, what in (({"validation_vision": True}, "validation_vision"),
-                     ({"spatial": 2}, "spatial"),
-                     ({"predictor": object()}, "serving artifacts")):
+                     ({"spatial": 2}, "spatial")):
         with pytest.raises(NotImplementedError, match=f"{what}.*not yet ported"):
             tp.save_predictions(setup["bundles"]["cls"], str(src), device="cpu", **kw)
     with pytest.raises(ValueError, match="requires uint8"):
@@ -286,11 +285,13 @@ def test_predict_cli_matches_jax_cli(setup, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--validation-vision"], ["--spatial", "2"], ["uta"]])
 def test_cli_unported_predict_options_fail_clearly(setup, tmp_path, flag, capsys):
-    model = setup["bundles"]["cls"]
+    """Unported options, and a ``.uta`` model whose header is not an
+    artifact's, exit 2 with one clear line."""
+    model, said = setup["bundles"]["cls"], "not yet ported"
     if flag == ["uta"]:
-        model, flag = str(tmp_path / "model.uta"), []
+        model, flag, said = str(tmp_path / "model.uta"), [], "not a readable serving artifact"
         with open(model, "wb") as f:
             np.savez(f, __utaot__=np.zeros(1, np.uint8))
     assert cli(["predict", model, str(setup["root"] / "tiles" / "img_tiles"),
                 "--device", "cpu", *flag]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert said in capsys.readouterr().err

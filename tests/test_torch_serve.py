@@ -191,16 +191,17 @@ def test_cli_stream_on_cpu(served, tmp_path):
 
 @pytest.mark.parametrize("case", ["spatial", "artifact"])
 def test_cli_unported_options_fail_clearly(served, tmp_path, case, capsys):
-    """``--spatial 2`` and a serving artifact (``.uta``) as the model."""
-    model, flag = served["bundle"], ["--spatial", "2"]
+    """``--spatial 2`` (not yet ported) and a ``.uta`` model whose header
+    is not an artifact's each exit 2 with one clear line."""
+    model, flag, said = served["bundle"], ["--spatial", "2"], "not yet ported"
     if case == "artifact":
-        model, flag = str(tmp_path / "m.uta"), []
+        model, flag, said = str(tmp_path / "m.uta"), [], "not a readable serving artifact"
         with open(model, "wb") as f:
             np.savez(f, __utaot__=np.zeros(1))
     rc = cli(["serve", model, served["scene"], str(tmp_path / "o.tif"),
               "--device", "cpu", *flag])
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert said in capsys.readouterr().err
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(served, monkeypatch):

@@ -1,10 +1,11 @@
-"""CLI front-end: ``python -m unet_tpu_torch <run|tile|train|predict|serve|import-weights|import-model|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <run|tile|train|predict|serve|export|import-weights|import-model|doctor> ...``.
 
     python -m unet_tpu_torch run config.json [--multi] [--device cpu]
     python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
     python -m unet_tpu_torch train tiles/ --model-path models --description run1 ...
     python -m unet_tpu_torch predict models/run1 pred/img_tiles --merge [--device-merge]
     python -m unet_tpu_torch serve models/run1 scene.tif out.tif [--stream]
+    python -m unet_tpu_torch export models/run1 model.uta [--quantize int8]
     python -m unet_tpu_torch import-weights xresnet34.pth -o xresnet34.npz
     python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
@@ -23,6 +24,12 @@ on the card by the ``blend_count`` kernel).
 it fits, else a band of rows on the card over the scene in RAM, else (past
 the host budget, or with ``--stream``) windowed reads with the finished
 rows streamed to the output file.
+``export`` freezes a bundle's prediction program with ``torch.export``
+into a ``.uta`` serving artifact (weights beside it, int8 with
+``--quantize int8``); ``predict`` and ``serve`` take an artifact wherever
+they take a bundle, on every tier and with ``--device-merge``.
+``UNET_TPU_BN`` (``fused``, ``pallas``, ``slice[:k]``, ``group[:g]``)
+selects the BatchNorm variant of every model built, as in ``unet_tpu``.
 ``train`` (tpu_opt by default; ``--no-tpu-opt`` the parity topology,
 ``--self-attention`` in either; ``--regression``, ``--lr-finder``,
 ``--existing-model``, ``--pretrained-weights`` (a ``.pth`` or an ``.npz``
@@ -195,6 +202,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "seconds, kernel launch counts and peak card memory "
                          "here")
 
+    ex = sub.add_parser(
+        "export",
+        help="freeze a trained bundle as a serving artifact (.uta): the prediction "
+             "program captured with torch.export + raw weights; loads without "
+             "model-building code, no pickle, symbolic batch")
+    ex.add_argument("model", help="trained bundle (model_path/description)")
+    ex.add_argument("output", help="artifact path (convention: .uta)")
+    ex.add_argument("--platforms", default="cpu,cuda",
+                    help="comma-separated devices the artifact may load on "
+                         "(default cpu,cuda)")
+    ex.add_argument("--patch-size", type=int, default=None,
+                    help="override the manifest tile size (spatial dims are "
+                         "static per artifact; batch is symbolic)")
+    ex.add_argument("--quantize", choices=["int8"], default=None,
+                    help="per-channel int8 weight quantization: ~4x smaller "
+                         "artifact, dequantized on the device, bf16 compute")
+    ex.add_argument("--device", default="cuda",
+                    help="torch device the program is exported on (default cuda; "
+                         "cpu only when asked)")
+
     iw = sub.add_parser(
         "import-weights",
         help="convert a torch/fastai xresnet state_dict (.pth) to an .npz for "
@@ -293,6 +320,17 @@ def _dispatch(args) -> int:
         return 0
     if args.command == "predict":
         return _predict(args)
+    if args.command == "export":
+        from .predict.artifact import export_artifact
+
+        t0 = time.perf_counter()
+        out = export_artifact(args.model, args.output,
+                              platforms=[p for p in args.platforms.split(",") if p],
+                              patch_size=args.patch_size, quantize=args.quantize,
+                              device=args.device)
+        print(f"Artifact written to {out} ({out.stat().st_size / 1e6:.1f} MB, "
+              f"{time.perf_counter() - t0:.1f} s)")
+        return 0
     if args.command == "import-weights":
         from .models.torch_import import import_weights_cli
 
@@ -386,12 +424,23 @@ def _compress_arg(args):
     return None if args.compress in (None, "none") else args.compress
 
 
+def _artifact_predictor(args):
+    """An ``ArtifactPredictor`` on ``--device`` when the model argument is a
+    ``.uta`` serving artifact, for the ``predictor=`` of every predict and
+    serve path; None for a bundle."""
+    from .predict.artifact import is_artifact, load_artifact
+
+    if not is_artifact(args.model):
+        return None
+    return load_artifact(args.model, batch_size=args.batch_size, tta=args.tta,
+                         device=args.device)
+
+
 def _predict(args) -> int:
-    from .api import is_artifact
     from .predict.predict import save_predictions
 
-    if is_artifact(args.model):
-        raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
+    if args.spatial > 1:
+        raise NotImplementedError("--spatial > 1 is not yet ported")
     out = save_predictions(args.model, args.tiles, args.regression, args.merge,
                            args.all_classes, args.specific_class, args.large_file,
                            args.aoi, args.year, args.validation_vision,
@@ -399,6 +448,7 @@ def _predict(args) -> int:
                            spatial=args.spatial, tta=args.tta,
                            device_merge=args.device_merge,
                            reference_quirks=args.reference_quirks,
+                           predictor=_artifact_predictor(args),
                            out_compress=_compress_arg(args), device=args.device)
     print(f"Predictions at {out}")
     return 0
@@ -407,18 +457,16 @@ def _predict(args) -> int:
 def _serve(args) -> int:
     import torch
 
-    from .api import is_artifact
     from .ops.blend import blend_and_count
     from .predict.predict import (Predictor, predict_raster, predict_raster_streamed,
                                   serve_scenes)
 
     if args.spatial > 1:
         raise NotImplementedError("--spatial > 1 is not yet ported")
-    if is_artifact(args.model):
-        raise NotImplementedError(f"{args.model}: serving artifacts are not yet ported")
     compress = _compress_arg(args)
-    predictor = Predictor(args.model, batch_size=args.batch_size,
-                          device=args.device, dtype=torch.bfloat16, tta=args.tta)
+    predictor = _artifact_predictor(args) or Predictor(
+        args.model, batch_size=args.batch_size, device=args.device,
+        dtype=torch.bfloat16, tta=args.tta)
     common = dict(patch_size=args.patch_size, patch_overlap=args.patch_overlap,
                   batch_size=args.batch_size, regression=args.regression,
                   all_classes=args.all_classes,

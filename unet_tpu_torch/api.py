@@ -22,6 +22,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Union
 
 from .data.augment import AugmentConfig
+from .predict.artifact import is_artifact
 from .tiling import split_raster
 from .train.loop import TrainerConfig, train_model
 from .utils.device import resolve_device
@@ -175,21 +176,6 @@ def trainer_config(p: Params) -> TrainerConfig:
     )
 
 
-def is_artifact(path) -> bool:
-    """True for a ``unet_tpu export`` serving artifact (an ``.npz`` holding
-    ``__utaot__``), which the port cannot load yet."""
-    import numpy as np
-
-    p = Path(str(path))
-    if not p.is_file():
-        return False
-    try:
-        with np.load(p, allow_pickle=False) as z:
-            return "__utaot__" in z.files
-    except (OSError, ValueError):
-        return False
-
-
 def check_ported(p: Params) -> None:
     """Raise ``NotImplementedError`` naming every field of ``p`` that asks
     for a feature the port does not have yet."""
@@ -202,7 +188,9 @@ def check_ported(p: Params) -> None:
         refused.append("spatial > 1 (set it to 1)")
     models = p.predict_model if isinstance(p.predict_model, (list, tuple)) else [p.predict_model]
     if p.Predict and any(m is not None and is_artifact(m) for m in models):
-        refused.append("a .uta predict_model (serving artifacts; use a model bundle)")
+        refused.append("a .uta predict_model (the Predict stage loads a model bundle, "
+                       "as in unet_tpu; serve an artifact with python -m unet_tpu_torch "
+                       "predict or serve)")
     if refused:
         raise NotImplementedError("not yet ported: " + "; ".join(refused))
 

@@ -12,12 +12,26 @@ a flax parameter path (``train/checkpoint.py``).
 
 Training-mode BatchNorm follows flax's (momentum 0.9, biased running
 variance), not ``nn.BatchNorm2d`` (its running variance is the unbiased
-one).
+one). ``batch_norm`` picks the normalization of every BatchNorm site when
+the model is built, from ``UNET_TPU_BN`` as the JAX package reads it:
+unset, ``fused`` or ``pallas`` (``BatchNorm``), ``slice[:k]``
+(``SliceBatchNorm``) or ``group[:g]`` (``GroupNormAsBN``); all three keep
+one parameter and buffer tree, so bundles load across the switch.
+
+Under ``torch.utils.checkpoint`` (``remat``) a block's forward runs again
+in the backward. ``recompute_context`` marks that second run: BatchNorm
+then leaves its running averages alone and SelfAttention reuses the power
+iteration of the first run, so the statistics and vectors move once a
+step, as flax's lifted ``nn.remat`` writes its variables once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import re
+import threading
 from typing import Optional
 
 import torch
@@ -25,6 +39,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn import KERNEL_REDUCTIONS, BatchNormTrain
+
+BN_ENV = "UNET_TPU_BN"
+_state = threading.local()
+
+
+def recomputing() -> bool:
+    """True inside a checkpointed block's second forward (the backward's
+    recompute)."""
+    return getattr(_state, "recompute", False)
+
+
+@contextlib.contextmanager
+def _recompute():
+    _state.recompute = True
+    try:
+        yield
+    finally:
+        _state.recompute = False
+
+
+def recompute_context():
+    """``context_fn`` for ``torch.utils.checkpoint``: nothing around the
+    first forward, ``recomputing()`` true around the recompute."""
+    return contextlib.nullcontext(), _recompute()
 
 
 def torch_pad(ks: int) -> int:
@@ -50,9 +88,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.padding)
 
 
-def batch_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
-               weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
+def batch_norm_eval(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                    weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm with running statistics, in flax's order: the
     float32 running stats promote the normalize to float32
     (``(x - mean) * (rsqrt(var + eps) * scale) + bias``) and the result is
@@ -72,11 +110,13 @@ class BatchNorm(nn.Module):
     tensors, their plain versions for CPU tensors; ``reductions =
     PLAIN_REDUCTIONS`` runs the plain versions on the card too) and updates
     the running averages as flax does: ``ra = m·ra + (1 − m)·batch`` with
-    momentum m = 0.9 and the biased batch variance. ``group`` (None, or a
-    process group set by ``sync_batch_norm``) makes the statistics those of
-    the ranks' global batch."""
+    momentum m = 0.9 and the biased batch variance, once a step (not in a
+    recompute). ``group`` (None, or a process group set by
+    ``sync_batch_norm``) makes the statistics those of the ranks' global
+    batch."""
 
     momentum = 0.9
+    n_stat: Optional[int] = None  # statistics from the whole batch
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -90,15 +130,74 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return batch_norm(x, self.running_mean, self.running_var,
-                              self.weight, self.bias, self.eps)
-        y, mean, var = BatchNormTrain.apply(x, self.weight, self.bias,
-                                            self.eps, self.reductions, self.group)
-        m = self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            return batch_norm_eval(x, self.running_mean, self.running_var,
+                                   self.weight, self.bias, self.eps)
+        y, mean, var = BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
+                                            self.reductions, self.group, self.n_stat)
+        if not recomputing():
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+class SliceBatchNorm(BatchNorm):
+    """``UNET_TPU_BN=slice[:k]`` (JAX's ``SliceStatsBatchNorm``): training
+    statistics, and the running averages they feed, from the first
+    min(k, N) samples of the batch (of the global batch under a process
+    group); the normalize, eval mode and the tree are ``BatchNorm``'s."""
+
+    def __init__(self, c: int, n_stat: int = 8, eps: float = 1e-5):
+        super().__init__(c, eps)
+        self.n_stat = int(n_stat)
+
+
+class GroupNormAsBN(BatchNorm):
+    """``UNET_TPU_BN=group[:g]`` (JAX's ``GroupNormAsBN``): GroupNorm over
+    the largest divisor of C that is <= ``groups``, per sample, in training
+    and eval alike, behind BatchNorm's tree (the running buffers are kept
+    and never read or written). Statistics in float32; the normalized
+    values are cast to the input's dtype before the scale and bias, as
+    JAX orders it. No cross-sample reduction, so no ``bn_stats`` kernel:
+    plain PyTorch, as JAX computes it outside any Pallas kernel."""
+
+    def __init__(self, c: int, groups: int = 32, eps: float = 1e-5):
+        super().__init__(c, eps)
+        self.groups = max(d for d in range(1, min(int(groups), c) + 1) if c % d == 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        xg = x.reshape(n, self.groups, c // self.groups, h, w).float()
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(2, 3, 4), keepdim=True) - mean * mean,
+                          min=0.0)
+        y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(n, c, h, w).to(x.dtype)
+        shape = (1, -1, 1, 1)
+        return y * self.weight.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
+
+
+_VARIANT = re.compile(r"(slice|group)(?::(\d+))?")
+
+
+def batch_norm(c: int, eps: float = 1e-5) -> BatchNorm:
+    """The BatchNorm of one site, as ``UNET_TPU_BN`` selects it now (the
+    JAX package's ``batch_norm`` factory): unset, ``fused`` or ``pallas``
+    give ``BatchNorm`` (its ``bn_sum_sumsq`` is the one-pass (Σx, Σx²)
+    reduction both JAX variants compute), ``slice[:k]`` a
+    ``SliceBatchNorm`` (k = 8 by default), ``group[:g]`` a
+    ``GroupNormAsBN`` (g = 32 by default). Any other value raises
+    ``ValueError``."""
+    variant = os.environ.get(BN_ENV, "")
+    if variant in ("", "fused", "pallas"):
+        return BatchNorm(c, eps)
+    m = _VARIANT.fullmatch(variant)
+    if m is None or m.group(2) == "0":
+        raise ValueError(f"{BN_ENV}={variant!r}: expected fused, pallas, slice[:k] "
+                         "or group[:g] with k, g >= 1")
+    if m.group(1) == "slice":
+        return SliceBatchNorm(c, int(m.group(2) or 8), eps)
+    return GroupNormAsBN(c, int(m.group(2) or 32), eps)
 
 
 def sync_batch_norm(model: nn.Module, group) -> None:
@@ -121,7 +220,7 @@ class ConvLayer(nn.Module):
         self.conv = Conv2d(ni, nf, ks, stride,
                            padding=torch_pad(ks) if pad is None else pad,
                            bias=norm is None)
-        self.bn = BatchNorm(nf) if norm is not None else None
+        self.bn = batch_norm(nf) if norm is not None else None
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -273,7 +372,8 @@ class SelfAttention(nn.Module):
     cast back. The weighted sum of the values takes the softmax in the
     compute dtype; its bf16 product rounds to bf16 on the card (one
     rounding that JAX's float32 ``preferred_element_type`` skips; none in
-    float32)."""
+    float32). A recompute under ``torch.utils.checkpoint`` reuses the
+    (v, u) of the training forward it repeats and writes nothing."""
 
     eps = 1e-12
 
@@ -284,15 +384,19 @@ class SelfAttention(nn.Module):
             self.register_parameter(f"{name}_kernel", nn.Parameter(torch.zeros(c, nf)))
             self.register_buffer(f"{name}_u", torch.full((nf,), 1 / math.sqrt(nf)))
         self.gamma = nn.Parameter(torch.zeros(1))
+        self._iterate: dict = {}  # name -> (v, u) of the last training forward
 
     def _weight(self, name: str) -> torch.Tensor:
         k = getattr(self, f"{name}_kernel")
         u = getattr(self, f"{name}_u")
-        if self.training:
+        if self.training and recomputing():
+            v, u = self._iterate[name]
+        elif self.training:
             with torch.no_grad():
                 v = _normalize(k @ u, self.eps)
                 u = _normalize(v @ k, self.eps)
                 getattr(self, f"{name}_u").copy_(u)
+            self._iterate[name] = (v, u)
         else:
             v = _normalize(k @ u, self.eps)
         sigma = v @ k @ u

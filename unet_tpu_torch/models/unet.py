@@ -16,7 +16,10 @@ derived statically from the architecture table, as the JAX package does.
   ResBlock on ``cat(y, x)`` and a 1x1 head to ``n_out``.
 
 ``self_attention`` puts a SelfAttention after the second conv of decoder
-block ``n − 3`` in either topology.
+block ``n − 3`` in either topology. ``remat`` recomputes every encoder
+ResBlock and every UnetBlock in the backward (``torch.utils.checkpoint``,
+non-reentrant), the blocks JAX's ``remat=True`` wraps in ``nn.remat``:
+less activation memory for one more forward of those blocks.
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ from torch import nn
 
 from .layers import (BatchNorm, Conv2d, ConvLayer, ConvTransposeUp,
                      ConvTranspose2d, PixelShuffleICNR, SelfAttention,
-                     pixel_shuffle, resize_nearest, space_to_depth)
-from .xresnet import ARCHS, XResNetBody, stage_out_channels
+                     batch_norm, pixel_shuffle, resize_nearest, space_to_depth)
+from .xresnet import ARCHS, XResNetBody, remat_call, stage_out_channels
 
 # equal to unet_tpu/models/unet.py TPU_OPT_TOPOLOGY_VERSION: bundles record
 # it, and a mismatch means the parameter shapes differ
@@ -50,7 +53,7 @@ class UnetBlock(nn.Module):
         super().__init__()
         self.shuf = (ConvTransposeUp(up_c, up_nf) if convt_up
                      else PixelShuffleICNR(up_c, up_nf, blur=blur))
-        self.bn = BatchNorm(skip_c)
+        self.bn = batch_norm(skip_c)
         self.conv1 = ConvLayer(up_nf + skip_c, nf_out, 3, norm=norm)
         self.conv2 = None if single_conv else ConvLayer(nf_out, nf_out, 3, norm=norm)
         self.sa = SelfAttention(nf_out) if self_attention else None
@@ -118,20 +121,22 @@ class DynamicUnet(nn.Module):
     ignores ``fold_logits`` and always returns full-resolution logits, as
     the JAX package does (callers compare shapes). In training mode every
     BatchNorm normalizes with its batch statistics and every SelfAttention
-    advances its power iteration."""
+    advances its power iteration, once a step with or without ``remat``."""
 
     def __init__(self, arch: str = "xresnet34", n_out: int = 2, c_in: int = 3,
                  self_attention: bool = False, last_cross: bool = True,
                  bottle: bool = False, decoder_norm: Optional[str] = None,
-                 tpu_opt: bool = True, dtype: torch.dtype = torch.bfloat16):
+                 tpu_opt: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 remat: bool = False):
         super().__init__()
         self.arch, self.n_out, self.c_in = arch, n_out, c_in
         self.tpu_opt = tpu_opt
         self.dtype = dtype
-        self.encoder = XResNetBody(arch, c_in, tpu_opt=tpu_opt)
+        self.remat = remat
+        self.encoder = XResNetBody(arch, c_in, tpu_opt=tpu_opt, remat=remat)
         stages = stage_out_channels(arch)
         ni = stages[-1]
-        self.mid_bn = BatchNorm(ni)
+        self.mid_bn = batch_norm(ni)
         self.mid_conv1 = ConvLayer(ni, ni * 2, 3, norm=decoder_norm)
         self.mid_conv2 = ConvLayer(ni * 2, ni, 3, norm=decoder_norm)
         skip_channels = list(reversed(stages[:-1])) + [64]
@@ -161,7 +166,7 @@ class DynamicUnet(nn.Module):
         y = F.relu(self.mid_bn(feats))
         y = self.mid_conv2(self.mid_conv1(y))
         for i, skip in enumerate(skips):
-            y = getattr(self, f"up_{i}")(y, skip)
+            y = remat_call(self.remat and self.training, getattr(self, f"up_{i}"), y, skip)
         if self.tpu_opt:
             if y.shape[2] * 2 != orig.shape[2]:
                 raise AssertionError((tuple(y.shape), tuple(orig.shape)))
@@ -184,7 +189,8 @@ def build_unet(arch: str = "xresnet34", n_out: int = 2, c_in: int = 3,
                self_attention: bool = False,
                dtype: torch.dtype = torch.bfloat16, **kwargs) -> DynamicUnet:
     """The eval-mode U-Net (``tpu_opt`` defaults to True here;
-    ``tpu_opt=False`` builds the parity topology)."""
+    ``tpu_opt=False`` builds the parity topology; ``remat=True`` recomputes
+    the encoder's ResBlocks and the UnetBlocks in the backward)."""
     if arch not in ARCHS:
         raise ValueError(f"Unknown architecture {arch!r}; options: {sorted(ARCHS)}")
     return DynamicUnet(arch=arch, n_out=n_out, c_in=c_in,

@@ -5,6 +5,8 @@ constructor argument and the body returns its skip activations, deepest
 first. Two stems: the parity stem (three 3x3 ConvLayers, stride 2 first)
 and the tpu_opt folded stem (k4-s4 conv to 128, two 3x3 convs at /4 to
 128 and 256 channels, depth-to-space back to 64 channels at /2).
+``remat`` recomputes every ResBlock in the backward, as JAX's ``nn.remat``
+does.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import ConvLayer, ResBlock, depth_to_space, max_pool_torch
+from .layers import ConvLayer, ResBlock, depth_to_space, max_pool_torch, recompute_context
 
 # architecture name -> (expansion, blocks per stage)
 ARCHS: Dict[str, Tuple[int, Tuple[int, ...]]] = {
@@ -38,17 +41,31 @@ def stage_out_channels(arch: str) -> List[int]:
     return [w * expansion for w in stage_widths(len(layers))]
 
 
+def remat_call(remat: bool, block: nn.Module, *args):
+    """``block(*args)``, or under ``remat`` (in training, with gradients
+    on) through non-reentrant ``torch.utils.checkpoint``: the block's
+    activations are dropped after the forward and recomputed in the
+    backward (its BatchNorms launch ``bn_sum_sumsq`` again there; see
+    ``layers.recompute_context``). The blocks draw no random numbers, so
+    no RNG state is kept."""
+    if not (remat and torch.is_grad_enabled()):
+        return block(*args)
+    return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=recompute_context)
+
+
 class XResNetBody(nn.Module):
     """Stem + maxpool + residual stages. ``forward`` returns ``(features,
     skips)`` with skips deepest first: [stage_{N-2}, ..., stage_0,
     stem_out]."""
 
     def __init__(self, arch: str = "xresnet34", c_in: int = 3,
-                 tpu_opt: bool = False):
+                 tpu_opt: bool = False, remat: bool = False):
         super().__init__()
         if arch not in ARCHS:
             raise ValueError(f"Unknown architecture {arch!r}; options: {sorted(ARCHS)}")
         self.tpu_opt = tpu_opt
+        self.remat = remat
         expansion, layers = ARCHS[arch]
         if tpu_opt:
             self.stem_0 = ConvLayer(c_in, 128, 4, 4, pad=0)
@@ -81,7 +98,7 @@ class XResNetBody(nn.Module):
         stage_outs = []
         for names in self.block_names:
             for name in names:
-                x = getattr(self, name)(x)
+                x = remat_call(self.remat and self.training, getattr(self, name), x)
             stage_outs.append(x)
         skips = list(reversed(stage_outs[:-1])) + [stem_out]
         return x, skips

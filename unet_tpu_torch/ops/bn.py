@@ -27,12 +27,23 @@ so every rank normalizes with the global batch's statistics, as GSPMD
 computes them in JAX; the backward all-reduces its (2, C) sums before dx
 and returns the rank's own dscale and dbias, which the trainer's gradient
 all-reduce then sums once.
+
+``n_stat`` (the ``UNET_TPU_BN=slice[:k]`` variant) takes the statistics
+from the first k = min(n_stat, global batch) samples only: the forward
+sums run over that prefix of the batch (a contiguous head of an NCHW
+tensor) with count k·H·W. Every sample's normalize reads those
+statistics, so the backward sums still span the whole batch, and dx =
+scale·inv·(dy − Σdy/(k·H·W) − x̂·Σdy·x̂/(k·H·W)) holds for the first k
+samples; the others get scale·inv·dy. Under a process group the prefix is
+that of the global batch: rank r holds the global samples [r·n, (r+1)·n)
+of a microbatch (``parallel.mesh.shard_indices``), so its share of the
+prefix is the head of its own n samples, of length clamp(k − r·n, 0, n).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -184,23 +195,40 @@ KERNEL_REDUCTIONS = (bn_sum_sumsq, bn_bwd_sums)
 PLAIN_REDUCTIONS = (bn_sum_sumsq_reference, bn_bwd_sums_reference)
 
 
+def slice_rows(n_local: int, n_stat: Optional[int], group) -> Tuple[int, int]:
+    """(k, k_local) of a training BatchNorm over ``n_local`` samples a
+    rank: k samples of the (global) batch give the statistics, the first
+    k_local of them on this rank. Without ``n_stat`` every sample does."""
+    world = dist.get_world_size(group) if group is not None else 1
+    total = n_local * world
+    if n_stat is None:
+        return total, n_local
+    k = min(max(int(n_stat), 1), total)
+    first = (dist.get_rank(group) if group is not None else 0) * n_local
+    return k, min(max(k - first, 0), n_local)
+
+
 class BatchNormTrain(torch.autograd.Function):
     """``(y, mean, var) = BatchNormTrain.apply(x, scale, bias, eps,
-    reductions, group)``: training-mode BatchNorm over (N, H, W) of an NCHW
-    tensor. ``reductions`` is the pair (forward sums, backward sums):
-    ``KERNEL_REDUCTIONS``, or ``PLAIN_REDUCTIONS`` to hold the kernels
-    against their plain versions on the card; ``group`` is None, or the
-    process group whose ranks hold equal shares of the batch; mean and var
-    are the float32 batch statistics (biased variance) for the running
-    averages and carry no gradient."""
+    reductions, group, n_stat)``: training-mode BatchNorm over (N, H, W) of
+    an NCHW tensor. ``reductions`` is the pair (forward sums, backward
+    sums): ``KERNEL_REDUCTIONS``, or ``PLAIN_REDUCTIONS`` to hold the
+    kernels against their plain versions on the card; ``group`` is None,
+    or the process group whose ranks hold equal shares of the batch;
+    ``n_stat`` is None (statistics of the whole batch) or the k of the
+    slice variant; mean and var are the float32 batch statistics (biased
+    variance) for the running averages and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, reductions, group=None):
-        n = x.numel() // x.shape[1]
-        sums = reductions[0](x)
+    def forward(ctx, x, scale, bias, eps: float, reductions, group=None, n_stat=None):
+        k, k_local = slice_rows(x.shape[0], n_stat, group)
+        n = k * (x.numel() // (x.shape[0] * x.shape[1]))
+        if k_local:
+            sums = reductions[0](x[:k_local])
+        else:  # this rank holds no sample of the slice
+            sums = torch.zeros((2, x.shape[1]), dtype=torch.float32, device=x.device)
         if group is not None:
             dist.all_reduce(sums, group=group)
-            n *= dist.get_world_size(group)
         mean = sums[0] / n
         var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -208,14 +236,14 @@ class BatchNormTrain(torch.autograd.Function):
         y = ((x.float() - mean.view(shape)) * (inv * scale).view(shape)
              + bias.view(shape)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.bwd_sums, ctx.group, ctx.n = reductions[1], group, n
+        ctx.bwd_sums, ctx.group, ctx.n, ctx.k_local = reductions[1], group, n, k_local
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, inv = ctx.saved_tensors
-        n = ctx.n
+        n, kl = ctx.n, ctx.k_local
         dy = dy.contiguous()
         sums = ctx.bwd_sums(dy, x, mean, inv)
         total = sums
@@ -224,8 +252,12 @@ class BatchNormTrain(torch.autograd.Function):
             dist.all_reduce(total, group=ctx.group)
         dbias, dscale = total[0], total[1]
         shape = (1, -1, 1, 1)
-        xhat = (x.float() - mean.view(shape)) * inv.view(shape)
-        dx = (scale * inv).view(shape) * (
-            dy.float() - (dbias / n).view(shape) - xhat * (dscale / n).view(shape))
+        g = dy.float()
+        # the statistics' share of the gradient reaches only the samples
+        # they were taken from
+        xhat = (x[:kl].float() - mean.view(shape)) * inv.view(shape)
+        head = g[:kl] - (dbias / n).view(shape) - xhat * (dscale / n).view(shape)
+        g = head if kl == x.shape[0] else torch.cat([head, g[kl:]])
+        dx = (scale * inv).view(shape) * g
         # the rank's own sums: the trainer's gradient all-reduce adds them up
-        return dx.to(x.dtype), sums[1], sums[0], None, None, None
+        return dx.to(x.dtype), sums[1], sums[0], None, None, None, None

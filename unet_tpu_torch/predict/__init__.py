@@ -7,6 +7,12 @@ from .predict import (  # noqa: F401
     save_predictions,
     serve_scenes,
 )
+from .artifact import (  # noqa: F401
+    ArtifactPredictor,
+    export_artifact,
+    is_artifact,
+    load_artifact,
+)
 from .merge import (  # noqa: F401
     MosaicAccumulator,
     TileInfo,

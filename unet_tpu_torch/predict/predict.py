@@ -21,6 +21,10 @@ card).
   host (``MosaicAccumulator``) or on the card (``device_merge``, the
   ``blend_count`` kernel, finalized on the card).
 
+Each takes ``predictor=``: a resident ``Predictor`` (a bundle) or an
+``artifact.ArtifactPredictor`` (a frozen ``.uta`` serving artifact, the
+same surface; the manifest fields they read come from its header).
+
 Output modes: argmax class map (uint8, default), ``all_classes``
 (float32 stack), ``specific_class`` (float32 band), ``regression``
 (float32 values, nodata −9999 in a mosaic), ``large_file`` (tiles:
@@ -149,7 +153,50 @@ class Spans:
         return [t * 1e3 for t in self._spans]
 
 
-class Predictor:
+class BatchPredictor:
+    """The batch surface every prediction path takes through ``predictor=``:
+    ``predict_batch_device`` (tiles to the device in their storage dtype,
+    through pinned memory on the card, each forward timed by ``Spans``),
+    ``predict_batch`` and ``forward_ms``. A subclass sets ``device`` and
+    ``_forwards`` and computes (B, n_out, H, W) probabilities of the raw
+    (B, H, W, C) device tiles in ``_forward``."""
+
+    device: torch.device
+    _forwards: Spans
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.inference_mode()
+    def predict_batch_device(self, images: np.ndarray,
+                             quantize_int8: bool = False,
+                             argmax_u8: bool = False) -> torch.Tensor:
+        """(B,H,W,C) raw tile values → device (B,n_out,H,W) probabilities
+        (or the finished forms of ``finish_probs``). Tiles cross to the
+        device in their storage dtype; the float cast and scaling run
+        there."""
+        x = torch.from_numpy(np.ascontiguousarray(images))
+        cuda = self.device.type == "cuda"
+        # from pinned memory the copy is queued behind earlier work instead
+        # of waiting for it, as a pageable copy does
+        x = x.pin_memory().to(self.device, non_blocking=True) if cuda else x
+        self._forwards.start()
+        out = finish_probs(self._forward(x), quantize_int8=quantize_int8,
+                           argmax_u8=argmax_u8)
+        self._forwards.stop()
+        return out
+
+    def predict_batch(self, images: np.ndarray) -> np.ndarray:
+        """(B,H,W,C) → host (B,H,W,n_out) probabilities (the JAX
+        package's layout)."""
+        return self.predict_batch_device(images).permute(0, 2, 3, 1).cpu().numpy()
+
+    def forward_ms(self) -> List[float]:
+        """Milliseconds of every forward so far (device time on CUDA)."""
+        return self._forwards.ms()
+
+
+class Predictor(BatchPredictor):
     """Loads a bundle onto ``device`` and predicts batches of equally sized
     tiles. ``dtype`` is the compute dtype (bf16 on the card).
 
@@ -180,34 +227,8 @@ class Predictor:
         self._forwards = Spans(self.device)
         self.scenes: List[dict] = []
 
-    @torch.inference_mode()
-    def predict_batch_device(self, images: np.ndarray,
-                             quantize_int8: bool = False,
-                             argmax_u8: bool = False) -> torch.Tensor:
-        """(B,H,W,C) raw tile values → device (B,n_out,H,W) probabilities
-        (or the finished forms of ``finish_probs``). Tiles cross to the
-        device in their storage dtype; the float cast and scaling run
-        there."""
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        cuda = self.device.type == "cuda"
-        # from pinned memory the copy is queued behind earlier work instead
-        # of waiting for it, as a pageable copy does
-        x = x.pin_memory().to(self.device, non_blocking=True) if cuda else x
-        self._forwards.start()
-        x = x.permute(0, 3, 1, 2).to(torch.float32) * self.scale
-        out = finish_probs(self.probs_fn(x), quantize_int8=quantize_int8,
-                           argmax_u8=argmax_u8)
-        self._forwards.stop()
-        return out
-
-    def predict_batch(self, images: np.ndarray) -> np.ndarray:
-        """(B,H,W,C) → host (B,H,W,n_out) probabilities (the JAX
-        package's layout)."""
-        return self.predict_batch_device(images).permute(0, 2, 3, 1).cpu().numpy()
-
-    def forward_ms(self) -> List[float]:
-        """Milliseconds of every forward so far (device time on CUDA)."""
-        return self._forwards.ms()
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.probs_fn(x.permute(0, 3, 1, 2).to(torch.float32) * self.scale)
 
 
 def _check_out_compress(out_compress, regression=False, all_classes=False,
@@ -627,7 +648,7 @@ def save_predictions(
     ``large_file`` quantization happens once at the end rather than per
     tile; a mosaic larger than the card's free memory raises
     ``RuntimeError``. ``predictor`` reuses a resident
-    :class:`Predictor`.
+    :class:`Predictor` or an ``artifact.ArtifactPredictor``.
 
     The three stages overlap: tile reads run on two threads, and on the
     card each batch's output is copied into pinned host memory behind its
@@ -635,8 +656,7 @@ def save_predictions(
     batch k's event has passed, while batch k+1's forward runs.
 
     Not ported yet (``NotImplementedError``): ``validation_vision`` (the
-    figures need matplotlib and pandas), ``spatial > 1`` and serving
-    artifacts as ``predictor``.
+    figures need matplotlib and pandas) and ``spatial > 1``.
     """
     if validation_vision:
         raise NotImplementedError(
@@ -646,9 +666,6 @@ def save_predictions(
     if predictor is None:
         predictor = Predictor(predict_model, batch_size=batch_size, device=device,
                               dtype=dtype, tta=tta)
-    elif not isinstance(predictor, Predictor):
-        raise NotImplementedError(
-            f"{type(predictor).__name__}: serving artifacts are not yet ported")
     if regression != predictor.regression:
         regression = predictor.regression
     # the reference gates large_file int8 stretching on TRUTHY specific_class
