@@ -133,7 +133,12 @@ Phases (any failure raises and the script exits nonzero), in this order:
      (bit-equal as a rule), the device merge >= 99.99% equal to serve in
      float32 (TF32 off; bf16 printed); in this process each mode's tiles/s,
      merge finalize seconds and blend_count launches (7 on the device
-     merge, 0 on the host's);
+     merge, 0 on the host's); then ``save_predictions(...,
+     validation_vision=True)`` with the model resident on the validation
+     tiles, their masks beside them: the printed tile-majority confusion
+     matrix sums to the tiles with masks, its diagonal share and the report
+     printed, the two figures drawn or skipped with a line naming the
+     missing plotting modules;
      9c. the quality gate of tests/test_quality_parity.py on the card, field
      for field (the fixture's 384² scene, 128² tiles, xresnet18, weighted
      focal, float32, ``save_predictions(merge=True)``): parity at 14
@@ -144,13 +149,15 @@ Phases (any failure raises and the script exits nonzero), in this order:
      the 4096² scene and its labels): (a) ``python -m unet_tpu_torch run``
      of a JSON ``Params`` file with Create_tiles, Train (2 epochs, a
      checkpoint each, the model summary) and Predict (9b's prediction tiles
-     merged on the host) in a subprocess, its tile tree byte-equal to 9b's
-     and its mosaic checked, then the same ``Params`` through ``api.main``
-     in this process with every launch count at 0 (43 × steps for each
-     bn_stats kernel, one flip_scale a step and a validation batch, no
-     blend_count); a config with ``visualize_data_example`` exits nonzero
-     before any tile is written; (b) a 3-epoch ``run`` killed (SIGKILL)
-     once ``checkpoints/1`` is complete, then resumed (``resume``): its
+     merged on the host), ``visualize_data_example`` and
+     ``validation_vision`` left at the reference's defaults (True), in a
+     subprocess: its tile tree byte-equal to 9b's and its mosaic checked,
+     the batch's printed shape and value range, the two histograms and the
+     loss plot drawn or skipped with a line each (matplotlib); then the
+     same ``Params`` through ``api.main`` in this process with every launch
+     count at 0 (43 × steps for each bn_stats kernel, one flip_scale a step
+     and a validation batch, no blend_count); (b) a 3-epoch ``run`` killed
+     (SIGKILL) once ``checkpoints/1`` is complete, then resumed (``resume``): its
      history holds epochs 1-2 and its bundle serves the scene; a
      saved-then-restored state bit-equal; (c) two ranks on the one card
      over gloo, 8 tiles each of a batch of 16: (43, 43, 1) launches a rank
@@ -184,6 +191,10 @@ Phases (any failure raises and the script exits nonzero), in this order:
      flagship trainer at 16 × 512² bf16 for ``UNET_TPU_BN`` unset,
      ``slice:8`` and ``group:32``: step ms, launches a step (43 / 43 / 1;
      group 0 / 0 / 1), a kernel step against a plain step (the bars of 8);
+     the group trainer's bundle (its manifest records ``group:32``) and a
+     float32 artifact of it served with the variable unset (float32, TF32
+     off): class maps equal to the training build's in eval, the plain
+     BatchNorm build's agreement printed beside;
      the slice variant's float32 running statistics equal to those of the
      first 8 samples of each site's input; (e) remat: a float32 step (TF32
      off) with and without it from the same weights and batch, loss,
@@ -1791,8 +1802,8 @@ def pipeline_train_phase(tmp: Path, pipe: Path) -> dict:
     return {"bundle": bundle, "launches": launches, "steps": steps}
 
 
-def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, transform,
-                           crs) -> dict:
+def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, pipe: Path,
+                           transform, crs) -> dict:
     """``python -m unet_tpu_torch predict --merge`` of the prediction tiles,
     on the host and then with ``--device-merge`` (blend_count): both mosaics
     uint8, 4096², georeferenced like the scene, and >= 99.99% equal to each
@@ -1800,7 +1811,11 @@ def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, trans
     and scene in float32 (TF32 off; the bf16 agreement is printed); then in
     this process with the model resident: each mode's
     tiles/s and merge finalize seconds, and blend_count's launches on the
-    device-merge path (counts set to 0 just before)."""
+    device-merge path (counts set to 0 just before); last,
+    ``validation_vision`` on the validation tiles of ``pipe`` (their masks
+    beside them), tile by tile with the model resident: the printed
+    tile-majority confusion matrix sums to the tiles with masks, and its
+    diagonal share is printed."""
     from unet_tpu_torch.geo import read_raster
     from unet_tpu_torch.ops.blend import DeviceMosaic, blend_and_count
     from unet_tpu_torch.predict import predict as pp
@@ -1883,10 +1898,51 @@ def pipeline_predict_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path, trans
         print(f"predict --merge in process ({mode} merge, model resident): {n_tiles} tiles in "
               f"{w['seconds']:.2f} s = {w['tiles_per_s']:.1f} tiles/s; merge finalize "
               f"{w['finalize_s']:.3f} s; blend_count launches {w['launches']}")
+    validation = validation_vision_check(tmp, bundle, pipe, pred)
     return {"pred": pred, "run": lambda: run("device", "profiled"), "agree": agree,
             "agree_serve": agree_serve, "agree_serve_bf16": agree_serve16, "warm": warm,
-            "cli_s": cli_s,
+            "cli_s": cli_s, "validation": validation,
             "launches": warm["device"]["launches"]}
+
+
+def validation_vision_check(tmp: Path, bundle: Path, pipe: Path, pred) -> dict:
+    """``save_predictions(..., validation_vision=True)`` with the resident
+    ``pred`` on a copy of ``pipe``'s validation tiles and masks: the
+    matrix it prints is the tile-majority matrix of the tiles it wrote
+    against the masks and sums to the tiles with masks; its two figures
+    drawn, or skipped with a line where the plotting modules are missing."""
+    from unet_tpu_torch.predict import predict as pp
+    from unet_tpu_torch.predict.figures import confusion_matrix, tile_majorities
+    from unet_tpu_torch.utils.plots import missing_modules
+
+    vdir = tmp / "validation" / "vali"
+    for sub in ("img_tiles", "mask_tiles"):
+        shutil.copytree(pipe / "vali" / sub, vdir / sub)
+    n_masked = len(list((vdir / "mask_tiles").glob("*.tif")))
+    t0 = time.perf_counter()
+    with quiet_stdout(tmp / "validation.log"):
+        folder = pp.save_predictions(str(bundle), str(vdir / "img_tiles"), predictor=pred,
+                                     validation_vision=True)
+    secs = time.perf_counter() - t0
+    printed = (tmp / "validation.log").read_text()
+    _, cm = confusion_matrix(*tile_majorities(folder, vdir / "img_tiles"))
+    if int(cm.sum()) != n_masked or f"Confusion Matrix:\n{cm}\n" not in printed:
+        raise AssertionError(f"validation_vision: matrix {cm.tolist()} for {n_masked} tiles "
+                             f"with masks; printed {printed[-2000:]}")
+    missing = missing_modules("matplotlib", "seaborn", "pandas")
+    pngs = sorted(p.name for p in (folder / "Valid_figures").glob("*.png"))
+    if pngs != ([] if missing else ["Confusion_Matrix.png", "classification_report.png"]) \
+            or (missing and f"figures skipped, {', '.join(missing)} not installed"
+                not in printed):
+        raise AssertionError(f"validation figures {pngs} with {missing or 'nothing'} missing")
+    diagonal = float(np.trace(cm) / cm.sum())
+    report = printed.split("Classification Report:\n", 1)[1].rstrip()
+    print(f"predict validation_vision in process (model resident): {n_masked} validation "
+          f"tiles with masks in {secs:.2f} s; tile-majority confusion matrix {cm.tolist()} "
+          f"(sums to {int(cm.sum())}), diagonal share {diagonal:.4f}; figures "
+          f"{', '.join(pngs) if pngs else 'skipped: ' + ', '.join(missing) + ' missing'}; "
+          "the report:\n" + report)
+    return {"n": n_masked, "diagonal": diagonal, "seconds": secs, "figures": pngs}
 
 
 def load_aerial_fixture():
@@ -2441,14 +2497,15 @@ def run_config(tmp: Path, base_dir: Path, pred_tiles: Path, desc: str, **kw) -> 
     split 0.8 / 0.2, seed 0; the gate's max_empty 0.9), the flagship
     (the gate's xresnet34, tpu_opt and bf16 by default) trained on them
     with a checkpoint an epoch and the model summary, and 9b's prediction
-    tiles predicted and merged on the host."""
+    tiles predicted and merged on the host. ``visualize_data_example`` and
+    ``validation_vision`` keep the reference's defaults (True; the merged
+    prediction draws no validation figures, as in the reference)."""
     cfg = dict(Create_tiles=True, Train=True, Predict=True,
                image_path=str(tmp / "scene.tif"), mask_path=str(tmp / "mask.tif"),
                base_dir=str(base_dir), patch_size=PATCH, patch_overlap=0.2, split=[0.8, 0.2],
                data_path=str(base_dir), model_path=str(tmp / "run_models"), description=desc,
                BATCH_SIZE=BATCH, EPOCHS=RUN_EPOCHS, LEARNING_RATE=1e-3, CODES=RUN_CODES,
-               checkpoint_every=1, export_model_summary=True, visualize_data_example=False,
-               validation_vision=False, enable_extra_parameters=False,
+               checkpoint_every=1, export_model_summary=True, enable_extra_parameters=False,
                predict_path=str(pred_tiles), predict_model=str(tmp / "run_models" / desc),
                AOI="R", year="2026", merge=True, seed=SEED)
     cfg.update(kw)
@@ -2465,9 +2522,11 @@ def history_epochs(bundle: Path) -> list:
 def run_phase(tmp: Path, tiled: dict, transform, crs) -> dict:
     """(a) ``python -m unet_tpu_torch run`` with the three stages in a
     subprocess (tile tree byte-equal to 9b's, the bundle, the summary and
-    two checkpoints, the mosaic), then the same ``Params`` through
-    ``api.main`` in this process with every launch count at 0; a config
-    with ``visualize_data_example`` refused before any tile is written.
+    two checkpoints, the mosaic; ``visualize_data_example`` on, as the
+    reference's defaults have it: the batch's shape and value range printed,
+    and the histograms and the loss plot drawn, or skipped with a line each
+    where matplotlib is not installed), then the same ``Params`` through
+    ``api.main`` in this process with every launch count at 0.
     (b) A ``run`` of RESUME_EPOCHS epochs killed once ``checkpoints/1`` is
     complete, then resumed: its history holds epochs 1.., and its bundle
     serves the scene; a saved-then-restored state bit-equal in this
@@ -2477,20 +2536,19 @@ def run_phase(tmp: Path, tiled: dict, transform, crs) -> dict:
     from unet_tpu_torch.train import checkpoint as ckpt
     from unet_tpu_torch.train.loop import Trainer, TrainerConfig
 
+    from unet_tpu_torch.utils.plots import missing_modules
+
     out = {}
     t0 = time.perf_counter()
-    refused = tmp / "refused_tiles"
-    vis = run_config(tmp, refused, tiled["pred"], "refused", visualize_data_example=True)
-    vis_proc = subprocess.Popen([sys.executable, "-m", "unet_tpu_torch", "run", str(vis)],
-                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
     base = tmp / "run_tiles"
     cfg_path = run_config(tmp, base, tiled["pred"], "run")
-    secs, _ = run_cli(["run", cfg_path], "run", quiet=True)
-    _, vis_err = vis_proc.communicate(timeout=300)
-    if vis_proc.returncode == 0 or refused.exists() or "visualize_data_example" not in vis_err:
-        raise AssertionError(f"visualize_data_example: exit {vis_proc.returncode}, tiles "
-                             f"{refused.exists()}, stderr {vis_err[-500:]}")
+    secs, run_out = run_cli(["run", cfg_path], "run", quiet=True)
+    shape = (f"Input shape: ({BATCH}, {PATCH}, {PATCH}, 3), "
+             f"Output shape: ({BATCH}, {PATCH}, {PATCH})")
+    value_range = re.search(r"Examplary value range INPUT: (\d+) to (\d+)\n", run_out)
+    if shape not in run_out or not value_range or \
+            not 0 <= int(value_range[1]) < int(value_range[2]) <= 255:
+        raise AssertionError(f"visualize_data_example's lines: {run_out[:2000]}")
     if tile_tree(base) != tile_tree(tiled["pipe"]):
         raise AssertionError("run's tile tree differs from the tile CLI's")
     bundle = tmp / "run_models" / "run"
@@ -2500,14 +2558,23 @@ def run_phase(tmp: Path, tiled: dict, transform, crs) -> dict:
             raise AssertionError(f"run's bundle lacks {name}")
     if ckpt.checkpoint_epochs(bundle / "checkpoints") != [1, 2]:
         raise AssertionError(f"checkpoints {ckpt.checkpoint_epochs(bundle / 'checkpoints')}")
+    pngs = ("run_image_plot.png", "run_mask_plot.png", "run_history.png")
+    plotting = not missing_modules("matplotlib")
+    for name in pngs:
+        skipped = f"{bundle / name}: skipped, matplotlib is not installed\n"
+        if (bundle / name).is_file() != plotting or (skipped in run_out) == plotting:
+            raise AssertionError(f"{name}: drawn {(bundle / name).is_file()}, matplotlib "
+                                 f"{'installed' if plotting else 'missing'}")
     mosaic = tiled["pred"].parent / "R_2026_run_prediction.tif"
     classes = check_class_map(mosaic, transform, crs)
     summary = (bundle / "run_model_summary.txt").read_text().split("\n\n")[0]
-    print(f"run (Create_tiles, Train, Predict) through the CLI: {secs:.1f} s with process "
-          f"start; tile tree byte-equal to 9b's ({len(tile_tree(base))} files); history "
-          f"epochs {history_epochs(bundle)}; checkpoints [1, 2]; mosaic classes {classes}; "
-          f"visualize_data_example refused before any tile (exit {vis_proc.returncode}); "
-          "summary: " + summary.replace("\n", " | "))
+    print(f"run (Create_tiles, Train, Predict; the reference's visualize_data_example and "
+          f"validation_vision) through the CLI: {secs:.1f} s with process start; tile tree "
+          f"byte-equal to 9b's ({len(tile_tree(base))} files); history epochs "
+          f"{history_epochs(bundle)}; checkpoints [1, 2]; mosaic classes {classes}; the "
+          f"batch's lines: {shape!r}, value range {value_range[1]} to {value_range[2]}; "
+          f"{', '.join(pngs)} {'drawn' if plotting else 'skipped (no matplotlib), a line each'}"
+          "; summary: " + summary.replace("\n", " | "))
     out["cli_s"] = secs
     shutil.rmtree(bundle / "checkpoints")  # about 0.4 GB each: free the disk as we go
 
@@ -3186,12 +3253,69 @@ def slice_stats_check(dev) -> dict:
     return {"err": err, "full_batch_dist": full, "sites": len(sites)}
 
 
+def group_serve_check(dev, tmp: Path, trainer) -> dict:
+    """The group trainer's bundle (its manifest records the variant) and
+    its float32 artifact, served on the 4096² scene with UNET_TPU_BN unset,
+    in float32 with TF32 off: class maps equal to the training build's in
+    eval, probabilities within ART_PROB_ATOL on one batch. The same weights
+    in a plain BatchNorm build, which is what a bundle without the record
+    loads unset, printed beside."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.models import build_unet
+    from unet_tpu_torch.predict import predict as pp
+    from unet_tpu_torch.predict.artifact import ArtifactPredictor, export_artifact
+    from unet_tpu_torch.tiling.windows import generate_windows
+
+    bundle = trainer.export()
+    model = trainer.model.eval()
+    scene = tmp / "scene.tif"
+    hwc = np.moveaxis(read_raster(scene).data, 0, 2)
+    x = np.stack([hwc[w.indices()] for w in generate_windows(SCENE, SCENE, PATCH, 0.2)[:BATCH]])
+    out = {}
+    with tf32_off(), bn_variant(""), quiet_stdout(tmp / "group_serve.log"):
+        model.dtype = torch.float32
+        reference = pp.Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+        reference.model, reference.probs_fn = model, pp.make_probs_fn(model, False)
+        want, _, _, _ = serve_map(reference, scene)
+        want_probs = reference.predict_batch(x)
+        loaded = pp.Predictor(str(bundle), batch_size=BATCH, device=dev, dtype=torch.float32)
+        t0 = time.perf_counter()
+        export_artifact(str(bundle), str(tmp / "group.uta"), dtype=torch.float32, device=dev)
+        art = ArtifactPredictor(str(tmp / "group.uta"), batch_size=BATCH, device=dev)
+        art_s = time.perf_counter() - t0
+        for name, pred in (("bundle", loaded), ("artifact", art)):
+            got, secs, _, _ = serve_map(pred, scene)
+            out[name] = {"agree": float((got == want).mean()), "seconds": secs,
+                         "prob_err": float(np.abs(pred.predict_batch(x) - want_probs).max())}
+        plain = build_unet(model.arch, n_out=model.n_out, c_in=model.c_in,
+                           dtype=torch.float32, bn_variant=None)
+        plain.load_state_dict(loaded.model.state_dict())
+        loaded.model, loaded.probs_fn = plain.to(dev).eval(), pp.make_probs_fn(plain, False)
+        got, _, _, _ = serve_map(loaded, scene)
+        out["plain_build_agree"] = float((got == want).mean())
+    said = (tmp / "group_serve.log").read_text()
+    print(f"group:32 bundle served with UNET_TPU_BN unset (float32, TF32 off, the {SCENE}² "
+          f"scene): the loader said {said.strip().splitlines()[0]!r}; class maps equal to "
+          f"the training build's in eval on {100 * out['bundle']['agree']:.4f}% (bundle), "
+          f"{100 * out['artifact']['agree']:.4f}% (float32 artifact, exported and loaded in "
+          f"{art_s:.1f} s); probabilities within {out['bundle']['prob_err']:.2e} / "
+          f"{out['artifact']['prob_err']:.2e}; the same weights in a plain BatchNorm build "
+          f"(what the loader built before bundles recorded the variant): "
+          f"{100 * out['plain_build_agree']:.4f}%")
+    if "group:32" not in said or min(out[k]["agree"] for k in ("bundle", "artifact")) < 1.0 \
+            or max(out[k]["prob_err"] for k in ("bundle", "artifact")) > ART_PROB_ATOL:
+        raise AssertionError(f"group bundle served unset: {out}")
+    return out
+
+
 def variant_phase(dev, tiles: Path, tmp: Path) -> dict:
     """11d: one flagship trainer (16 × 512², bf16) for each UNET_TPU_BN
     value of VARIANTS: step ms, launches a step (unset and slice 43 / 43 /
     1, group 0 / 0 / 1), a kernel step against a plain step (the bars of
-    8); then the slice variant's running statistics in float32. The unset
-    variant's trainer is returned open (``out["trainer"]``) for 11e."""
+    8), and the group trainer's bundle and artifact served with the
+    variable unset (``group_serve_check``); then the slice variant's
+    running statistics in float32. The unset variant's trainer is returned
+    open (``out["trainer"]``) for 11e."""
     out = {}
     for value in VARIANTS:
         name = value or "unset"
@@ -3211,6 +3335,8 @@ def variant_phase(dev, tiles: Path, tmp: Path) -> dict:
             loss_rel, worst = step_check(trainer, host[0], f"UNET_TPU_BN={name}")
             out[name] = {"step_ms": step_ms, "launches": launches, "peak_bytes": peak,
                          "loss_rel": loss_rel, "grad_worst": worst}
+            if value.startswith("group"):
+                out[name]["served_unset"] = group_serve_check(dev, tmp, trainer)
             keep = not value
             if keep:
                 out["trainer"], out["host"] = trainer, host
@@ -3594,7 +3720,7 @@ def main() -> int:
         focal["trainer"].close()
         del focal["trainer"]
         predicted = pipeline_predict_phase(dev, tmp, piped["bundle"], tiled["pred"],
-                                           transform, crs)
+                                           tiled["pipe"], transform, crs)
 
         log(f"-- phase 9c at {time.perf_counter() - t_start:.1f} s")
         # 9c. the quality gate on the card

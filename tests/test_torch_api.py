@@ -202,7 +202,10 @@ def test_stage_call_sequence_matches_jax(recorded, tmp_path, multi):
 def test_unported_fields_are_refused_before_any_stage(recorded, tmp_path, field, value,
                                                       stages):
     """Each field whose feature is not ported is named, before any stage
-    runs; a JSON config then exits 2 through ``run``."""
+    runs; a JSON config then exits 2 through ``run``. The two fields
+    ported since (``visualize_data_example``, ``validation_vision``) pass
+    the check: ``run`` calls the stages with the field set, as JAX's
+    does."""
     base = dict(Create_tiles=True, Train=True, Predict=True, visualize_data_example=False,
                 validation_vision=False, image_path="a.tif", base_dir="t")
     base.update(stages)
@@ -212,6 +215,17 @@ def test_unported_fields_are_refused_before_any_stage(recorded, tmp_path, field,
             np.savez(f, __utaot__=np.zeros(1))
     base[field] = value
     p = api.Params(device="cpu", **base)
+    if field in ("visualize_data_example", "validation_vision"):
+        api.check_ported(p)
+        (tmp_path / "c.json").write_text(json.dumps(base))
+        assert cli(["run", str(tmp_path / "c.json"), "--device", "cpu"]) == 0
+        assert jax_cli(["run", str(tmp_path / "c.json")]) in (0, None)
+        assert [c[0] for c in recorded["port"]] == ["tile", "train", "predict"]
+        _same_calls(recorded["port"], recorded["jax"])
+        got = (recorded["port"][1][1]["visualize_data_example"]
+               if field == "visualize_data_example" else recorded["port"][2][1][9])
+        assert got is True
+        return
     for main in (api.main, api.main_multi):
         with pytest.raises(NotImplementedError, match=f"not yet ported: .*{field.split('_')[0]}"):
             main(p)
@@ -302,3 +316,40 @@ def test_run_end_to_end_matches_jax(tmp_path):
     assert maps[0].data.dtype == np.uint8 and maps[0].data.shape == maps[1].data.shape
     assert tuple(maps[0].transform) == tuple(maps[1].transform)
     assert (maps[0].data == maps[1].data).mean() >= 0.99
+
+
+def test_run_with_the_reference_figure_defaults(tmp_path, capsys):
+    """``run`` with JAX's ``Params`` defaults for ``visualize_data_example``
+    and ``validation_vision`` (True, left out of the JSON): the three stages
+    on a 128² scene cut into 32² tiles, xresnet18 for 1 epoch, the
+    validation tiles predicted tile by tile. The batch's two lines and
+    histograms, the loss plot, the matrix and the report come out, and the
+    validation figures sit beside the predicted tiles."""
+    assert api.Params().visualize_data_example and api.Params().validation_vision
+    rng = np.random.default_rng(1)
+    img = np.kron(rng.integers(0, 256, (3, 16, 16)), np.ones((8, 8), np.int64)).astype(np.uint8)
+    mask = np.where(img[0] > 160, 1, np.where(img[1] > 160, 2, 0)).astype(np.uint8)
+    write_raster(tmp_path / "scene.tif", img, transform=TRANSFORM, crs="EPSG:25832")
+    write_raster(tmp_path / "mask.tif", mask[None], transform=TRANSFORM, crs="EPSG:25832")
+    tiles = tmp_path / "tiles"
+    cfg = dict(Create_tiles=True, Train=True, Predict=True,
+               image_path=str(tmp_path / "scene.tif"), mask_path=str(tmp_path / "mask.tif"),
+               base_dir=str(tiles), patch_size=32, split=[0.75, 0.25], data_path=str(tiles),
+               model_path=str(tmp_path / "models"), description="d", BATCH_SIZE=4,
+               EPOCHS=1, LEARNING_RATE=1e-3, export_model_summary=False,
+               CODES=["background", "a", "b"], predict_path=str(tiles / "vali" / "img_tiles"),
+               predict_model=str(tmp_path / "models" / "d"), enable_extra_parameters=True,
+               ARCHITECTURE="xresnet18", max_empty=1.0, bf16=False, seed=0,
+               predict_batch_size=4)
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    with pytest.warns(UserWarning, match="Extra parameters are enabled"):
+        assert cli(["run", str(tmp_path / "c.json"), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "Input shape: (4, 32, 32, 3), Output shape: (4, 32, 32)" in out
+    assert "Confusion Matrix:" in out and "Classification Report:" in out
+    bundle = tmp_path / "models" / "d"
+    for name in ("d_image_plot.png", "d_mask_plot.png", "d_history.png", "d_history.csv"):
+        assert (bundle / name).is_file(), name
+    valid = tiles / "vali" / "predicted_tiles_d" / "Valid_figures"
+    assert sorted(p.name for p in valid.glob("*.png")) == ["Confusion_Matrix.png",
+                                                           "classification_report.png"]

@@ -8,14 +8,17 @@ output, its running statistics after the step and the gradients of the
 input and every parameter, from the same weights, in float32 (and, for
 unset, ``fused`` and ``pallas``, the bf16 output against JAX's); the
 flagship's wiring (every BatchNorm site takes the variable) on a whole
-xresnet18 U-Net; bundles loading across the switch in both packages; an
-unknown value refused; and ``slice`` over two gloo ranks against one
-process, with k below and above a rank's share of the batch.
+xresnet18 U-Net; bundles loading across the switch in both packages; a
+trained bundle and its artifact serving the variant they were trained
+with whatever the variable says; an unknown value refused; and ``slice``
+over two gloo ranks against one process, with k below and above a rank's
+share of the batch.
 
 The ranks run in spawned processes: JAX is imported only inside the tests
 that use it, so the children import this module without it.
 """
 
+import json
 import multiprocessing as mp
 import traceback
 
@@ -214,6 +217,101 @@ def test_bundle_trained_under_a_variant_loads_unset(variant, monkeypatch, tmp_pa
     for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(jv)[0],
                                  jax.tree_util.tree_flatten_with_path(want)[0]):
         np.testing.assert_array_equal(np.asarray(a), b, err_msg=jax.tree_util.keystr(path))
+
+
+def _tile_set(root, tile=32, n=4):
+    """``trai`` and ``vali`` tiles (3-band uint8 blocks, a mask a function
+    of the image) and a 64 × 96 scene of the same kind."""
+    from unet_tpu_torch.geo import write_raster
+
+    rng = np.random.default_rng(5)
+    transform = (500000.0, 0.2, 0.0, 5400000.0, 0.0, -0.2)
+
+    def blocks(h, w):
+        img = np.kron(rng.integers(0, 256, (3, h // 8, w // 8)),
+                      np.ones((8, 8), np.int64)).astype(np.uint8)
+        return img, np.where(img[0] > 160, 1, np.where(img[1] > 160, 2, 0)).astype(np.uint8)
+
+    for scene in ("trai", "vali"):
+        for sub in ("img_tiles", "mask_tiles"):
+            (root / "tiles" / scene / sub).mkdir(parents=True)
+        for i in range(n):
+            img, mask = blocks(tile, tile)
+            write_raster(root / "tiles" / scene / "img_tiles" / f"{i}.tif", img,
+                         transform=transform, crs="EPSG:25832")
+            write_raster(root / "tiles" / scene / "mask_tiles" / f"{i}.tif", mask[None],
+                         transform=transform, crs="EPSG:25832")
+    write_raster(root / "scene.tif", blocks(64, 96)[0], transform=transform,
+                 crs="EPSG:25832")
+    return root / "tiles", root / "scene.tif"
+
+
+@pytest.mark.parametrize("trained,served", [("group:4", ""), ("", "group:4")])
+def test_bundle_and_artifact_serve_the_variant_they_were_trained_with(
+        trained, served, monkeypatch, tmp_path, capsys):
+    """One train step under ``trained``, the bundle and a float32 ``.uta``
+    exported; served under ``served`` each gives the training build's eval
+    maps and probabilities (float32: equal to 1e-6), and the loader names
+    both variants in one line; a trainer of ``existing_model`` adopts the
+    variant. The same weights in a build of ``served``'s variant serve
+    other probabilities: what the recorded variant fixes."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.predict import predict as tp
+    from unet_tpu_torch.predict.artifact import ArtifactPredictor, _read, export_artifact
+    from unet_tpu_torch.train import loop
+
+    tiles, scene = _tile_set(tmp_path)
+    _set(monkeypatch, trained)
+    t = loop.Trainer(loop.TrainerConfig(
+        data_path=tiles, model_path=tmp_path / "models", description="b", codes=["a", "b", "c"],
+        arch="xresnet18", batch_size=4, epochs=1, lr=1e-2, seed=0, bf16=False,
+        loader_threads=2, device="cpu"))
+    try:
+        t.init_state()
+        t.train_step(*next(iter(t.train_loader))[:2])
+        bundle = t.export()
+    finally:
+        t.close()
+    want_variant = tl.parse_bn_variant(trained)
+    assert t.model.bn_variant == want_variant
+    assert json.loads((bundle / "b.json").read_text())["bn_variant"] == want_variant
+    kw = dict(patch_size=32, batch_size=4, device="cpu", dtype=torch.float32)
+    reference = tp.Predictor(str(bundle), batch_size=4, device="cpu", dtype=torch.float32)
+    reference.model = t.model.eval()
+    reference.probs_fn = tp.make_probs_fn(reference.model, False)
+    want_map = tp.predict_raster(str(bundle), str(scene), None, predictor=reference, **kw)[0]
+    img = read_raster(scene).data
+    x = np.stack([np.moveaxis(img[:, :32, c:c + 32], 0, -1) for c in (0, 32, 64)])
+    want_probs = reference.predict_batch(x)
+
+    _set(monkeypatch, served)
+    capsys.readouterr()
+    pred = tp.Predictor(str(bundle), batch_size=4, device="cpu", dtype=torch.float32)
+    line = capsys.readouterr().out
+    assert pred.model.bn_variant == want_variant
+    assert f"({want_variant or 'unset'}), not UNET_TPU_BN={served or '(unset)'}" in line
+    export_artifact(str(bundle), str(tmp_path / "b.uta"), platforms=["cpu"],
+                    dtype=torch.float32, device="cpu")
+    assert _read(tmp_path / "b.uta")[0]["bn_variant"] == want_variant
+    art = ArtifactPredictor(str(tmp_path / "b.uta"), batch_size=4, device="cpu")
+    for served_by in (pred, art):
+        got = tp.predict_raster(str(bundle), str(scene), None, predictor=served_by, **kw)[0]
+        np.testing.assert_array_equal(got, want_map)
+        np.testing.assert_allclose(served_by.predict_batch(x), want_probs, rtol=0, atol=1e-6)
+    t2 = loop.Trainer(loop.TrainerConfig(
+        data_path=tiles, model_path=tmp_path / "models", description="again",
+        codes=["a", "b", "c"], arch="xresnet18", batch_size=4, epochs=1,
+        existing_model=str(bundle), loader_threads=2, device="cpu"))
+    t2.close()
+    assert t2.model.bn_variant == want_variant
+    assert (f"existing_model: adopting bundle topology {{'bn_variant': {want_variant!r}}}"
+            in capsys.readouterr().out)
+    wrong = build_unet("xresnet18", n_out=3, c_in=3, dtype=torch.float32,
+                       bn_variant=served or None)
+    wrong.load_state_dict(pred.model.state_dict())
+    pred.model = wrong.eval()
+    pred.probs_fn = tp.make_probs_fn(wrong, False)
+    assert np.abs(pred.predict_batch(x) - want_probs).max() > 1e-2
 
 
 @pytest.mark.parametrize("value", ["slice:x", "group:0", "bogus", "slice:"])

@@ -1,5 +1,8 @@
 """PyTorch port: ``python -m unet_tpu_torch doctor`` on a machine without a
-CUDA device (the report, the exit code, isolated failures)."""
+CUDA device (the report, the exit code, isolated failures, the optional
+modules)."""
+
+import sys
 
 import pytest
 import torch
@@ -7,7 +10,7 @@ import torch
 from unet_tpu_torch.__main__ import cli
 from unet_tpu_torch.utils import doctor
 
-CHECKS = ("versions", "devices", "mesh", "toolchain", "native decoder")
+CHECKS = ("versions", "devices", "mesh", "toolchain", "native decoder", "optional deps")
 
 
 @pytest.fixture
@@ -85,3 +88,25 @@ def test_devices_check_needs_compute_capability_9(monkeypatch):
     Props.major = 9
     ok, detail = doctor._devices()
     assert ok and "Some GPU, 16.0 GiB" in detail
+
+
+@pytest.mark.parametrize("hidden", [None, "matplotlib"])
+def test_optional_deps_names_each_module_and_never_blocks(hidden, monkeypatch):
+    """PIL and tqdm with the JAX package's reasons (its third, torch, is
+    core here), then the plotting modules; a missing one is named with what
+    it is for, and the check still passes: the PNGs are skipped, nothing
+    else needs it."""
+    from unet_tpu.utils import doctor as jax_doctor
+
+    ok, want = jax_doctor._optional_deps()
+    assert ok and want == "PIL, torch, tqdm"
+    if hidden:
+        monkeypatch.setitem(sys.modules, hidden, None)
+    ok, detail = doctor._optional_deps()
+    assert ok
+    names = [part.split(" ")[0] for part in detail.split(", ")]
+    assert names == ["PIL", "tqdm", "matplotlib", "seaborn", "pandas"]
+    if hidden:
+        assert "matplotlib MISSING (training and validation PNGs)" in detail
+    else:
+        assert "MISSING" not in detail

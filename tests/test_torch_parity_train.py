@@ -180,6 +180,7 @@ def test_manifest_equals_the_jax_trainers(trained):
     finally:
         jt.close()
     got = json.loads((trained["bundle"] / "par.json").read_text())
+    assert got.pop("bn_variant") is None  # the port's own key: plain BatchNorm
     assert got == json.loads(json.dumps(want))
 
 
@@ -235,6 +236,7 @@ def test_tiles_not_divisible_by_4_fall_back_to_parity(tmp_path, capsys):
     finally:
         jt.close()
     assert got["tpu_opt"] is False and got["tpu_opt_topology"] is None
+    assert got.pop("bn_variant") is None  # the port's own key: plain BatchNorm
     assert json.loads(json.dumps(got)) == json.loads(json.dumps(want))
 
 

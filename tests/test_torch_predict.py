@@ -237,7 +237,22 @@ def test_device_merge_equals_host_merge_on_the_cpu(setup, tmp_path):
     np.testing.assert_array_equal(dev, host)
 
 
-def test_resident_predictor_and_unported_arguments(setup, tmp_path):
+def _masks_beside(src):
+    """A ``mask_tiles`` folder beside ``src`` (``img_tiles``): each tile's
+    mask a seeded function of its image."""
+    (src.parent / "mask_tiles").mkdir()
+    for f in sorted(src.glob("*.tif")):
+        r = read_raster(f)
+        mask = np.where(r.data[0] > 150, 1, np.where(r.data[1] > 150, 2, 0)).astype(np.uint8)
+        write_raster(src.parent / "mask_tiles" / f.name, mask[None], transform=r.transform,
+                     crs=r.crs)
+
+
+def test_resident_predictor_and_unported_arguments(setup, tmp_path, capsys):
+    """A resident predictor merges as a fresh one does; with masks beside
+    the tiles, ``validation_vision`` prints the tile-majority matrix (over
+    the 12 tiles) and report of the written tiles and draws the figures;
+    ``spatial`` > 1 is refused."""
     pred = tp.Predictor(setup["bundles"]["cls"], batch_size=BATCH, device="cpu",
                         dtype=torch.float32)
     src = tmp_path / "t" / "img_tiles"
@@ -246,10 +261,23 @@ def test_resident_predictor_and_unported_arguments(setup, tmp_path):
     b = tp.save_predictions(setup["bundles"]["cls"], str(src), merge=True,
                             device="cpu", dtype=torch.float32)
     assert a == b
-    for kw, what in (({"validation_vision": True}, "validation_vision"),
-                     ({"spatial": 2}, "spatial")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*not yet ported"):
-            tp.save_predictions(setup["bundles"]["cls"], str(src), device="cpu", **kw)
+    _masks_beside(src)
+    capsys.readouterr()
+    out_dir = tp.save_predictions(setup["bundles"]["cls"], str(src), predictor=pred,
+                                  validation_vision=True)
+    out = capsys.readouterr().out
+    from sklearn.metrics import classification_report, confusion_matrix
+
+    from unet_tpu_torch.predict.figures import tile_majorities
+
+    y_true, y_pred = tile_majorities(out_dir, src)
+    assert len(y_true) == 12
+    assert f"Confusion Matrix:\n{confusion_matrix(y_true, y_pred)}\n" in out
+    assert classification_report(y_true, y_pred, zero_division=1) in out
+    assert sorted(p.name for p in (out_dir / "Valid_figures").glob("*.png")) == [
+        "Confusion_Matrix.png", "classification_report.png"]
+    with pytest.raises(NotImplementedError, match="spatial.*not yet ported"):
+        tp.save_predictions(setup["bundles"]["cls"], str(src), device="cpu", spatial=2)
     with pytest.raises(ValueError, match="requires uint8"):
         tp.save_predictions(setup["bundles"]["cls"], str(src), large_file=True,
                             out_compress="jpeg", device="cpu")
@@ -286,12 +314,22 @@ def test_predict_cli_matches_jax_cli(setup, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--validation-vision"], ["--spatial", "2"], ["uta"]])
 def test_cli_unported_predict_options_fail_clearly(setup, tmp_path, flag, capsys):
     """Unported options, and a ``.uta`` model whose header is not an
-    artifact's, exit 2 with one clear line."""
+    artifact's, exit 2 with one clear line. ``--validation-vision``, ported
+    since, exits 0 and prints the matrix of the tiles with masks beside."""
     model, said = setup["bundles"]["cls"], "not yet ported"
+    tiles = setup["root"] / "tiles" / "img_tiles"
+    if flag == ["--validation-vision"]:
+        tiles = tmp_path / "v" / "img_tiles"
+        shutil.copytree(setup["root"] / "tiles" / "img_tiles", tiles)
+        _masks_beside(tiles)
+        assert cli(["predict", model, str(tiles), "--device", "cpu", *flag]) == 0
+        out = capsys.readouterr().out
+        assert "Confusion Matrix:" in out and "Classification Report:" in out
+        assert (tiles.parent / "predicted_tiles_m" / "Valid_figures").is_dir()
+        return
     if flag == ["uta"]:
         model, flag, said = str(tmp_path / "model.uta"), [], "not a readable serving artifact"
         with open(model, "wb") as f:
             np.savez(f, __utaot__=np.zeros(1, np.uint8))
-    assert cli(["predict", model, str(setup["root"] / "tiles" / "img_tiles"),
-                "--device", "cpu", *flag]) == 2
+    assert cli(["predict", model, str(tiles), "--device", "cpu", *flag]) == 2
     assert said in capsys.readouterr().err

@@ -227,17 +227,36 @@ def test_geo_copy_writes_what_jax_reads(tmp_path, compress):
 
 
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "unet_tpu")
+# imported only inside the functions that draw: the card's machine has none
+PLOTTING = ("matplotlib", "seaborn", "pandas", "sklearn")
 
 
-def _imported_modules(path):
-    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+def _imports(nodes):
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
 
 
+def _imported_modules(path):
+    yield from _imports(ast.walk(ast.parse(path.read_text(), str(path))))
+
+
+def _module_level_imports(path):
+    """Imports run when the module is imported: every node outside a
+    function or lambda body."""
+    todo = [ast.parse(path.read_text(), str(path))]
+    while todo:
+        node = todo.pop()
+        yield from _imports([node])
+        todo += [c for c in ast.iter_child_nodes(node)
+                 if not isinstance(c, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))]
+
+
 def test_port_imports_no_jax_and_nothing_of_unet_tpu():
+    """Nothing of JAX or ``unet_tpu`` anywhere in the port, and no plotting
+    or table package at module level."""
     # chip_smoke.py and tools/torch_gate_seeds.py load the quality gate's
     # scene from tests/aerial_fixture.py
     files = sorted((ROOT / "unet_tpu_torch").rglob("*.py")) + [
@@ -247,3 +266,9 @@ def test_port_imports_no_jax_and_nothing_of_unet_tpu():
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in BANNED]
     assert not bad, bad
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _module_level_imports(f)
+           if m.split(".")[0] in PLOTTING]
+    assert not bad, bad
+    drawn = {m.split(".")[0] for m in _imported_modules(ROOT / "unet_tpu_torch" / "predict"
+                                                         / "figures.py")}
+    assert {"matplotlib", "seaborn", "pandas"} <= drawn  # the walk sees inside functions

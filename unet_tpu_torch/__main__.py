@@ -147,7 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--large-file", action="store_true")
     pr.add_argument("--aoi", default=None)
     pr.add_argument("--year", default=None)
-    pr.add_argument("--validation-vision", action="store_true", help="not yet ported")
+    pr.add_argument("--validation-vision", action="store_true")
     pr.add_argument("--class-zero", action="store_true",
                     help="0 = nodata: decrement classes on write "
                          "(reference predict.py:32-35)")

@@ -180,10 +180,6 @@ def check_ported(p: Params) -> None:
     """Raise ``NotImplementedError`` naming every field of ``p`` that asks
     for a feature the port does not have yet."""
     refused = []
-    if p.Train and p.visualize_data_example:
-        refused.append("visualize_data_example (set it to false)")
-    if p.Predict and p.validation_vision:
-        refused.append("validation_vision (set it to false)")
     if p.spatial > 1:
         refused.append("spatial > 1 (set it to 1)")
     models = p.predict_model if isinstance(p.predict_model, (list, tuple)) else [p.predict_model]

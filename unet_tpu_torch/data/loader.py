@@ -187,6 +187,17 @@ class TileLoader:
                 inflight.append(self._batcher.submit(self._make_batch, *nxt))
             yield fut.result()
 
+    def one_batch(self) -> Batch:
+        """The first batch of a new iteration, as the JAX loader's
+        ``one_batch``: a shuffled loader draws that iteration's
+        permutation, so every later epoch's order is the one JAX's loader
+        gives after its ``one_batch``."""
+        it = iter(self)
+        try:
+            return next(it)
+        finally:
+            it.close()
+
     def close(self) -> None:
         self._batcher.shutdown(wait=False)
         self._pool.shutdown(wait=False)

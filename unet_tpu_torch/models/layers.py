@@ -13,10 +13,13 @@ a flax parameter path (``train/checkpoint.py``).
 Training-mode BatchNorm follows flax's (momentum 0.9, biased running
 variance), not ``nn.BatchNorm2d`` (its running variance is the unbiased
 one). ``batch_norm`` picks the normalization of every BatchNorm site when
-the model is built, from ``UNET_TPU_BN`` as the JAX package reads it:
-unset, ``fused`` or ``pallas`` (``BatchNorm``), ``slice[:k]``
-(``SliceBatchNorm``) or ``group[:g]`` (``GroupNormAsBN``); all three keep
-one parameter and buffer tree, so bundles load across the switch.
+the model is built, from the variant the model is built with
+(``bn_variant_scope``; ``DynamicUnet``'s ``bn_variant``), by default
+``UNET_TPU_BN`` as the JAX package reads it: unset, ``fused`` or
+``pallas`` (``BatchNorm``), ``slice[:k]`` (``SliceBatchNorm``) or
+``group[:g]`` (``GroupNormAsBN``); all three keep one parameter and buffer
+tree, so bundles load across the switch (and a bundle records the variant
+it was trained with, which its loader builds).
 
 Under ``torch.utils.checkpoint`` (``remat``) a block's forward runs again
 in the backward. ``recompute_context`` marks that second run: BatchNorm
@@ -28,6 +31,7 @@ step, as flax's lifted ``nn.remat`` writes its variables once.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 import os
 import re
@@ -178,26 +182,69 @@ class GroupNormAsBN(BatchNorm):
 
 
 _VARIANT = re.compile(r"(slice|group)(?::(\d+))?")
+FROM_ENV = "from-env"  # bn_variant default: UNET_TPU_BN when the model is built
+_building: contextvars.ContextVar = contextvars.ContextVar("bn_variant", default=FROM_ENV)
+
+
+def parse_bn_variant(value: Optional[str], what: str = BN_ENV) -> Optional[str]:
+    """The normalized BatchNorm variant of ``value`` (an ``UNET_TPU_BN``
+    value, or one a bundle records): None for unset, empty, ``fused`` or
+    ``pallas`` (each builds ``BatchNorm``), else ``slice:k`` or
+    ``group:g`` with the default k = 8, g = 32 filled in. Any other value
+    raises ``ValueError`` naming ``what``."""
+    if value in (None, "", "fused", "pallas"):
+        return None
+    m = _VARIANT.fullmatch(value)
+    if m is None or m.group(2) == "0":
+        raise ValueError(f"{what}={value!r}: expected fused, pallas, slice[:k] "
+                         "or group[:g] with k, g >= 1")
+    return f"{m.group(1)}:{int(m.group(2) or (8 if m.group(1) == 'slice' else 32))}"
+
+
+def env_bn_variant() -> Optional[str]:
+    """``UNET_TPU_BN`` as it is set now, normalized (``parse_bn_variant``)."""
+    return parse_bn_variant(os.environ.get(BN_ENV, ""))
+
+
+def env_differs(variant: Optional[str]) -> bool:
+    """True when ``UNET_TPU_BN`` as it is set now is not the normalized
+    ``variant``, or is no valid value."""
+    try:
+        return env_bn_variant() != variant
+    except ValueError:
+        return True
+
+
+@contextlib.contextmanager
+def bn_variant_scope(variant: Optional[str]):
+    """Every ``batch_norm`` site built inside the block takes ``variant``
+    (normalized; None is ``BatchNorm``) instead of reading the
+    environment."""
+    token = _building.set(variant)
+    try:
+        yield
+    finally:
+        _building.reset(token)
 
 
 def batch_norm(c: int, eps: float = 1e-5) -> BatchNorm:
-    """The BatchNorm of one site, as ``UNET_TPU_BN`` selects it now (the
-    JAX package's ``batch_norm`` factory): unset, ``fused`` or ``pallas``
-    give ``BatchNorm`` (its ``bn_sum_sumsq`` is the one-pass (Σx, Σx²)
-    reduction both JAX variants compute), ``slice[:k]`` a
+    """The BatchNorm of one site, of the variant the enclosing
+    ``bn_variant_scope`` gives, else of ``UNET_TPU_BN`` as it is set now
+    (the JAX package's ``batch_norm`` factory): unset, ``fused`` or
+    ``pallas`` give ``BatchNorm`` (its ``bn_sum_sumsq`` is the one-pass
+    (Σx, Σx²) reduction both JAX variants compute), ``slice[:k]`` a
     ``SliceBatchNorm`` (k = 8 by default), ``group[:g]`` a
     ``GroupNormAsBN`` (g = 32 by default). Any other value raises
     ``ValueError``."""
-    variant = os.environ.get(BN_ENV, "")
-    if variant in ("", "fused", "pallas"):
+    variant = _building.get()
+    if variant == FROM_ENV:
+        variant = env_bn_variant()
+    if variant is None:
         return BatchNorm(c, eps)
-    m = _VARIANT.fullmatch(variant)
-    if m is None or m.group(2) == "0":
-        raise ValueError(f"{BN_ENV}={variant!r}: expected fused, pallas, slice[:k] "
-                         "or group[:g] with k, g >= 1")
-    if m.group(1) == "slice":
-        return SliceBatchNorm(c, int(m.group(2) or 8), eps)
-    return GroupNormAsBN(c, int(m.group(2) or 32), eps)
+    kind, n = variant.split(":")
+    if kind == "slice":
+        return SliceBatchNorm(c, int(n), eps)
+    return GroupNormAsBN(c, int(n), eps)
 
 
 def sync_batch_norm(model: nn.Module, group) -> None:

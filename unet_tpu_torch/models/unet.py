@@ -31,9 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (BatchNorm, Conv2d, ConvLayer, ConvTransposeUp,
-                     ConvTranspose2d, PixelShuffleICNR, SelfAttention,
-                     batch_norm, pixel_shuffle, resize_nearest, space_to_depth)
+from .layers import (FROM_ENV, BatchNorm, Conv2d, ConvLayer, ConvTransposeUp,
+                     ConvTranspose2d, PixelShuffleICNR, SelfAttention, batch_norm,
+                     bn_variant_scope, env_bn_variant, parse_bn_variant, pixel_shuffle,
+                     resize_nearest, space_to_depth)
 from .xresnet import ARCHS, XResNetBody, remat_call, stage_out_channels
 
 # equal to unet_tpu/models/unet.py TPU_OPT_TOPOLOGY_VERSION: bundles record
@@ -121,18 +122,32 @@ class DynamicUnet(nn.Module):
     ignores ``fold_logits`` and always returns full-resolution logits, as
     the JAX package does (callers compare shapes). In training mode every
     BatchNorm normalizes with its batch statistics and every SelfAttention
-    advances its power iteration, once a step with or without ``remat``."""
+    advances its power iteration, once a step with or without ``remat``.
+
+    ``bn_variant`` picks every BatchNorm site's variant (``None``,
+    ``slice[:k]`` or ``group[:g]``; ``fused`` and ``pallas`` are
+    ``None``); by default ``UNET_TPU_BN`` as it is set now. The model
+    keeps the normalized value in ``bn_variant``."""
 
     def __init__(self, arch: str = "xresnet34", n_out: int = 2, c_in: int = 3,
                  self_attention: bool = False, last_cross: bool = True,
                  bottle: bool = False, decoder_norm: Optional[str] = None,
                  tpu_opt: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 remat: bool = False):
+                 remat: bool = False, bn_variant: Optional[str] = FROM_ENV):
         super().__init__()
         self.arch, self.n_out, self.c_in = arch, n_out, c_in
         self.tpu_opt = tpu_opt
         self.dtype = dtype
         self.remat = remat
+        # normalized (layers.parse_bn_variant); bundles record it
+        self.bn_variant = (env_bn_variant() if bn_variant == FROM_ENV
+                           else parse_bn_variant(bn_variant, "bn_variant"))
+        with bn_variant_scope(self.bn_variant):
+            self._build(arch, n_out, c_in, self_attention, last_cross, bottle,
+                        decoder_norm, tpu_opt, remat)
+
+    def _build(self, arch, n_out, c_in, self_attention, last_cross, bottle, decoder_norm,
+               tpu_opt, remat) -> None:
         self.encoder = XResNetBody(arch, c_in, tpu_opt=tpu_opt, remat=remat)
         stages = stage_out_channels(arch)
         ni = stages[-1]
@@ -190,7 +205,8 @@ def build_unet(arch: str = "xresnet34", n_out: int = 2, c_in: int = 3,
                dtype: torch.dtype = torch.bfloat16, **kwargs) -> DynamicUnet:
     """The eval-mode U-Net (``tpu_opt`` defaults to True here;
     ``tpu_opt=False`` builds the parity topology; ``remat=True`` recomputes
-    the encoder's ResBlocks and the UnetBlocks in the backward)."""
+    the encoder's ResBlocks and the UnetBlocks in the backward;
+    ``bn_variant`` as ``DynamicUnet`` takes it)."""
     if arch not in ARCHS:
         raise ValueError(f"Unknown architecture {arch!r}; options: {sorted(ARCHS)}")
     return DynamicUnet(arch=arch, n_out=n_out, c_in=c_in,

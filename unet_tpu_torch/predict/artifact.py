@@ -27,8 +27,9 @@ memory like any other tensor.
 Container layout (one ``.npz`` file, numpy's zip format)::
 
     __utaot__   uint8[]  header JSON: format, patch size, bands, n_out,
-                         regression/scale/codes, torch version, compute
-                         dtype, platforms, leaf names, quantization
+                         regression/scale/codes, topology and BatchNorm
+                         variant, torch version, compute dtype,
+                         platforms, leaf names, quantization
     __program__ uint8[]  the torch.export program archive
     w00000...   ndarray  weight leaves in state_dict order
     s00000...   float32  int8 artifacts: the scales of the quantized
@@ -219,6 +220,7 @@ def export_artifact(bundle: str, out_path: str,
         "ARCHITECTURE": manifest.get("ARCHITECTURE"),
         "tpu_opt": bool(manifest.get("tpu_opt", False)),
         "self_attention": bool(manifest.get("self_attention", False)),
+        "bn_variant": model.bn_variant,
         "platforms": platforms,
         "torch_version": torch.__version__,
         "dtype": str(dtype).replace("torch.", ""),

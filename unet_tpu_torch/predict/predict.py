@@ -51,6 +51,7 @@ from ..tiling.windows import Window, generate_windows
 from ..train.checkpoint import load_bundle
 from ..utils.device import resolve_device
 from ..utils.progress import TileProgress
+from .figures import plot_valid_predict
 from .merge import MosaicAccumulator, grid_layout, tile_extent_info
 
 READ_AHEAD = 2  # batches of scene rows read and stacked ahead of the forward
@@ -655,12 +656,14 @@ def save_predictions(
     forward with an event recorded after it; the host writes batch k once
     batch k's event has passed, while batch k+1's forward runs.
 
-    Not ported yet (``NotImplementedError``): ``validation_vision`` (the
-    figures need matplotlib and pandas) and ``spatial > 1``.
+    ``validation_vision`` (tiles mode, not regression): after the tiles
+    are written, ``figures.plot_valid_predict`` prints the tile-majority
+    confusion matrix and classification report against the masks beside
+    ``predict_path`` and draws them where matplotlib, seaborn and pandas
+    are installed.
+
+    Not ported yet (``NotImplementedError``): ``spatial > 1``.
     """
-    if validation_vision:
-        raise NotImplementedError(
-            "validation_vision (figures with matplotlib and pandas) is not yet ported")
     if int(spatial) > 1:
         raise NotImplementedError("spatial partitioning: not yet ported")
     if predictor is None:
@@ -801,6 +804,8 @@ def save_predictions(
     finally:
         read_pool.shutdown(wait=False)
 
+    if validation_vision and not merge and not regression:
+        plot_valid_predict(str(output_folder), str(path), class_zero=class_zero)
     if not merge:
         return output_folder
     if device_mosaic is not None:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..io import msgpack_codec
+from ..models.layers import BN_ENV, FROM_ENV, env_differs, parse_bn_variant
 from ..models.unet import TPU_OPT_TOPOLOGY_VERSION, build_unet
 
 
@@ -209,9 +210,23 @@ def load_bundle(bundle: Union[str, Path], best: bool = False,
     """(model, manifest): the eval-mode U-Net of the topology the manifest
     records (tpu_opt, or parity when ``tpu_opt`` is false or absent, as the
     JAX loader reads it) with the bundle's weights (on the CPU, float32
-    parameters, computing in ``dtype``)."""
+    parameters, computing in ``dtype``).
+
+    A manifest with ``bn_variant`` (the port's trainer writes it) builds
+    that BatchNorm variant whatever ``UNET_TPU_BN`` says, and prints one
+    line naming both when they differ: a GroupNorm-trained model never
+    uses its running statistics, so another variant would serve wrong
+    maps. Without the key (``unet_tpu``'s bundles, imported models) the
+    variable picks it, as in ``unet_tpu``."""
     d, manifest_path, weights_path = bundle_paths(bundle)
     manifest = load_manifest(manifest_path)
+    bn_variant = FROM_ENV
+    if "bn_variant" in manifest:
+        bn_variant = parse_bn_variant(manifest["bn_variant"], "bn_variant")
+        if env_differs(bn_variant):
+            print(f"{d}: building the BatchNorm variant the bundle was trained with "
+                  f"({bn_variant or 'unset'}), not {BN_ENV}="
+                  f"{os.environ.get(BN_ENV) or '(unset)'}")
     tpu_opt = bool(manifest.get("tpu_opt", False))
     v = manifest.get("tpu_opt_topology", 1)
     if tpu_opt and v != TPU_OPT_TOPOLOGY_VERSION:
@@ -230,6 +245,7 @@ def load_bundle(bundle: Union[str, Path], best: bool = False,
         self_attention=bool(manifest.get("self_attention", False)),
         tpu_opt=tpu_opt,
         dtype=dtype,
+        bn_variant=bn_variant,
     )
     sd = from_flax_variables(load_weights(weights_path))
     model.load_state_dict({k: torch.from_numpy(np.array(a, np.float32))

@@ -34,7 +34,13 @@ is built, as the JAX trainer does), with or without self-attention:
   trace of the first epoch;
 * ``export`` writes the bundle ``unet_tpu`` reads: ``<desc>.json``, flax
   msgpack weights, ``best-model.msgpack``, ``<desc>_history.csv``,
-  ``<desc>_profile.txt`` and, after a sweep, ``<desc>_lr_find.csv``.
+  ``<desc>_profile.txt`` and, after a sweep, ``<desc>_lr_find.csv`` and
+  ``<desc>_lr_find.png``; ``train_model`` adds ``<desc>_history.png`` and,
+  with ``visualize_data_example``, the histograms of one train batch
+  (``<desc>_image_plot.png``, ``<desc>_mask_plot.png``), drawn before
+  ``fit`` from the loader's ``one_batch`` as JAX draws them. Where
+  matplotlib is not installed each PNG is skipped with one line naming it
+  (``unet_tpu`` raises ``ImportError`` there);
 
 * step checkpoints every ``checkpoint_every`` epochs and ``resume`` from
   the newest, with JAX's semantics (``train/checkpoint.py``: the port's own
@@ -53,8 +59,7 @@ is built, as the JAX trainer does), with or without self-attention:
   last microbatch), validation's sums are reduced, and only rank 0 prints
   rows and writes the bundle, the checkpoints and the summary.
 
-``visualize_data_example`` and ``spatial`` > 1 are not ported yet and
-raise.
+``spatial`` > 1 is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -74,8 +79,10 @@ from ..data import (NOOP_AUGMENT, AugmentConfig, TileDataset, TileLoader,
                     augment_batch, get_datatype, get_patch_size,
                     resolve_class_weights)
 from ..models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
-from ..models.layers import sync_batch_norm
+from ..models.layers import FROM_ENV, env_differs, parse_bn_variant, sync_batch_norm
 from ..parallel import mesh
+from ..utils.plots import (missing_modules, plot_lr_find, plot_training_overview,
+                           visualize_data, visualize_data_path)
 from ..utils.profiling import StepTimer, device_trace
 from . import checkpoint as ckpt
 from . import metrics as M
@@ -113,7 +120,7 @@ class TrainerConfig:
     existing_model: Optional[str] = None
     pretrained_weights: Optional[str] = None  # xresnet state_dict (.pth) or .npz
     export_model_summary: bool = False
-    visualize_data_example: bool = False  # not yet ported: raises
+    visualize_data_example: bool = False  # plot one train batch before fit
     info: str = ""
     class_zero: bool = False
     normalize: str = "reference"
@@ -156,9 +163,6 @@ LR_FIND_WINDOW = 10  # sweep losses fetched this many at a time, not a host sync
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig):
-        if cfg.visualize_data_example:
-            raise NotImplementedError("visualize_data_example is not yet ported; set it "
-                                      "to False")
         if cfg.spatial > 1:
             raise NotImplementedError("spatial > 1 is not yet ported; set spatial to 1")
         if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
@@ -170,6 +174,7 @@ class Trainer:
         accum = max(1, cfg.grad_accum)
         self.train_shard = mesh.shard_indices(cfg.batch_size, accum, self.world, self.rank)
         self.valid_shard = mesh.shard_indices(cfg.batch_size, 1, self.world, self.rank)
+        self.bn_variant = FROM_ENV  # the model's BatchNorm variant: UNET_TPU_BN's
         if cfg.existing_model:
             # transfer learning: the bundle defines the architecture
             m = ckpt.load_manifest(ckpt.bundle_paths(cfg.existing_model)[1])
@@ -179,10 +184,14 @@ class Trainer:
                 v = m.get(key)
                 if v is not None and getattr(cfg, field_name) != v:
                     adopted[field_name] = v
+            if "bn_variant" in m:  # written by the port's trainer, as load_bundle reads it
+                self.bn_variant = parse_bn_variant(m["bn_variant"], "bn_variant")
+                if env_differs(self.bn_variant):
+                    adopted["bn_variant"] = self.bn_variant
             if adopted:
                 if self.primary:
                     print(f"existing_model: adopting bundle topology {adopted}")
-                cfg = replace(cfg, **adopted)
+                cfg = replace(cfg, **{k: v for k, v in adopted.items() if k != "bn_variant"})
         self.cfg = cfg
         self.device = mesh.rank_device(cfg.device)
         if self.device.type == "cuda":  # the rank's card is the current one (CUDA initialized)
@@ -220,7 +229,8 @@ class Trainer:
             cfg = self.cfg = replace(cfg, tpu_opt=False)
         self.model = build_unet(cfg.arch, n_out=self.n_out, c_in=self.c_in,
                                 self_attention=cfg.self_attention, tpu_opt=cfg.tpu_opt,
-                                dtype=torch.bfloat16 if cfg.bf16 else torch.float32)
+                                dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
+                                bn_variant=self.bn_variant)
         sync_batch_norm(self.model, self.group)
         self.class_weights = resolve_class_weights(cfg.class_weights, cfg.codes,
                                                    self.data_path, cfg.regression,
@@ -597,7 +607,9 @@ class Trainer:
 
     def manifest(self) -> Dict[str, Any]:
         """The run manifest ``unet_tpu train`` writes: the reference's
-        description.json fields plus what rebuilds the model."""
+        description.json fields plus what rebuilds the model, and the
+        port's ``bn_variant`` (the model's normalized BatchNorm variant,
+        null for plain BatchNorm; ``unet_tpu`` ignores the key)."""
         width, resolution, data_type, bands = get_patch_size(self.data_path)
         cfg = self.cfg
         return {
@@ -628,6 +640,8 @@ class Trainer:
             "c_in": self.c_in,
             "tpu_opt": cfg.tpu_opt,
             "tpu_opt_topology": TPU_OPT_TOPOLOGY_VERSION if cfg.tpu_opt else None,
+            # the port's own key: load_bundle builds this BatchNorm variant
+            "bn_variant": self.model.bn_variant,
             "dtype_str": self.dtype_str,
             "normalize": cfg.normalize,
             "resolved_class_weights": list(self.class_weights),
@@ -659,6 +673,8 @@ class Trainer:
             r = self.lr_find_result
             lines = ["lr,loss"] + [f"{lr!r},{loss!r}" for lr, loss in zip(r["lrs"], r["losses"])]
             (bundle_dir / f"{cfg.description}_lr_find.csv").write_text("\n".join(lines) + "\n")
+            out = bundle_dir / f"{cfg.description}_lr_find.png"
+            plot_png(out, lambda: plot_lr_find(r["lrs"], r["losses"], r["suggestions"], out))
         return bundle_dir
 
 
@@ -718,8 +734,39 @@ def _leaves(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def plot_png(path: Path, draw: Callable[[], Any]) -> None:
+    """``draw()`` the PNG at ``path``, or, where matplotlib is not
+    installed, print one line that it was skipped. Any other error
+    propagates."""
+    if missing_modules("matplotlib"):
+        print(f"{path}: skipped, matplotlib is not installed")
+        return
+    draw()
+
+
+def visualize_batch(trainer: Trainer) -> None:
+    """``visualize_data_example``: JAX's two lines on one train batch
+    (``one_batch``) and its histograms, bands last as JAX's loader gives
+    them. Every rank draws the batch, so the loaders' orders stay equal;
+    rank 0 prints and plots."""
+    images, masks, _ = trainer.train_loader.one_batch()
+    if not trainer.primary:
+        return
+    cfg = trainer.cfg
+    bundle_dir = Path(cfg.model_path) / cfg.description
+    bundle_dir.mkdir(parents=True, exist_ok=True)
+    model_path = bundle_dir / f"{cfg.description}.msgpack"
+    images = np.moveaxis(images, 1, -1)
+    print(f"Input shape: {images.shape}, Output shape: {masks.shape}")
+    print(f"Examplary value range INPUT: {images.min()} to {images.max()}")
+    for batch in (images, masks):
+        plot_png(visualize_data_path(batch, model_path),
+                 lambda b=batch: visualize_data(b, model_path))
+
+
 def train_model(cfg: TrainerConfig, trainer: Optional[Trainer] = None) -> Path:
-    """Build a trainer (unless given), fit, export the bundle and, with
+    """Build a trainer (unless given); with ``visualize_data_example`` plot
+    one train batch; fit; export the bundle, then the loss plot and, with
     ``export_model_summary``, the model summary; returns the bundle
     directory."""
     trainer = trainer or Trainer(cfg)
@@ -728,8 +775,13 @@ def train_model(cfg: TrainerConfig, trainer: Optional[Trainer] = None) -> Path:
                       f"Test files: {trainer.dataset.n_valid}")
         if not trainer.cfg.regression:
             trainer.print(f"Class weights: {trainer.class_weights}")
+        if trainer.cfg.visualize_data_example:
+            visualize_batch(trainer)
         trainer.fit()
         out = trainer.export()
+        if trainer.history and trainer.primary:
+            png = out / f"{trainer.cfg.description}_history.png"
+            plot_png(png, lambda: plot_training_overview(trainer.history, trainer.monitor, png))
         if trainer.cfg.export_model_summary and trainer.primary:
             (out / f"{trainer.cfg.description}_model_summary.txt").write_text(
                 model_summary(trainer))

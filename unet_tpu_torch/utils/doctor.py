@@ -15,14 +15,17 @@ the report has the same format. The checks:
 * ``toolchain`` (the counterpart of the compile-cache check) — nvcc's path
   and version, and the kernel build directory with its cached libraries;
 * ``native decoder`` — its ABI version, or the build error;
+* ``optional deps`` — the optional modules, each found or MISSING with
+  what it is for: PIL and tqdm (JAX's list without torch, which is core
+  here) and matplotlib, seaborn and pandas, which draw the training and
+  validation PNGs. A machine without them trains and predicts, and skips
+  those PNGs with a line naming the module, so the check passes either
+  way (JAX's fails, and its ``doctor`` exits 1, where one is missing);
 * ``kernels`` (opt-in, as ``--pallas`` is) — ``ops.probe.capability_check``:
   every CUDA kernel built, launched once and compared with its plain
   version.
 
-``versions``, ``devices`` and ``mesh`` are blocking. The JAX package's
-``optional deps`` check
-has no counterpart: the port's one optional module, PIL, only reads TIFF
-features outside the codec, and a machine without it is still ready.
+``versions``, ``devices`` and ``mesh`` are blocking.
 """
 
 from __future__ import annotations
@@ -117,6 +120,21 @@ def _native() -> Tuple[bool, str]:
                   "LZW/PackBits/deflate, JPEG incl. progressive)")
 
 
+OPTIONAL_DEPS = (("PIL", "JPEG-in-TIFF fallback + codec cross-checks"),
+                 ("tqdm", "per-tile progress bars"),
+                 ("matplotlib", "training and validation PNGs"),
+                 ("seaborn", "training and validation PNGs"),
+                 ("pandas", "training and validation PNGs"))
+
+
+def _optional_deps() -> Tuple[bool, str]:
+    from .plots import missing_modules
+
+    missing = set(missing_modules(*(mod for mod, _ in OPTIONAL_DEPS)))
+    return True, ", ".join(f"{mod} MISSING ({why})" if mod in missing else mod
+                           for mod, why in OPTIONAL_DEPS)
+
+
 def _kernels() -> Tuple[bool, str]:
     from ..ops.probe import capability_check
 
@@ -138,6 +156,7 @@ def run_doctor(kernels: bool = False, device: str = "cuda") -> Dict[str, Tuple[b
         ("mesh", lambda: _mesh(device)),
         ("toolchain", _toolchain),
         ("native decoder", _native),
+        ("optional deps", _optional_deps),
     ]
     if kernels:
         checks.append(("kernels", _kernels))
