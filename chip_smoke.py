@@ -185,7 +185,10 @@ Phases (any failure raises and the script exits nonzero), in this order:
      artifact exported in this process at float32 against a float32
      ``Predictor`` with TF32 off (all-class mosaic within 1e-5, class maps
      all equal); the int8 artifact's class agreement with the bundle >
-     0.97; (c) ``predict --merge --device-merge`` with the artifact on 9b's
+     0.97; when the float artifact's median warm forward exceeds 1.5× the
+     bundle's, one forward of each is traced at the end of phase 10, with
+     the other traces (wall against the card's busy time, the host's top
+     ops); (c) ``predict --merge --device-merge`` with the artifact on 9b's
      prediction tiles, >= 99.99% equal to the bundle's device merge, and in
      this process at float32 (TF32 off) with one launch a batch; (d) a
      flagship trainer at 16 × 512² bf16 for ``UNET_TPU_BN`` unset,
@@ -201,6 +204,28 @@ Phases (any failure raises and the script exits nonzero), in this order:
      gradients and running statistics compared (bit-equal expected; the
      statistics must be), bn_sum_sumsq launched 43 + 39 recomputed sites,
      peak card memory of both, then bf16 step ms and peak memory of both;
+  12. spatial partitioning (the tile height sharded over ranks with halo
+     exchanges), ranks sharing the one card over gloo: (a) ``python -m
+     unet_tpu_torch serve --spatial 2`` with ``UNET_TPU_TORCH_BACKEND=gloo``
+     (the command starts its two ranks) on the 4096² scene: the bf16 map
+     >= 99% equal to phase 4's unsharded CLI map (JAX's bar), rank 0's
+     blend_count launches equal to phase 4's; in process, two spawned
+     ranks serve the scene at float32 (TF32 off): every class's
+     probabilities within 1e-5 of rank 0's unsharded serve and the classes
+     equal wherever the unsharded top-two margin is >= 2e-5 (closer ties
+     may flip within that bar: cuDNN picks its float32 algorithms by the
+     rows a rank holds), blend_count on rank 0 as often as unsharded and
+     never on rank 1; (b) the flagship's float32 spatial step at 16 × 512² (TF32 off)
+     against 9d's one-process step on the same tiles and draws (the bars
+     of 8), (43, 43, 1) launches a rank and step, each rank's kernel step
+     against a plain step, the ranks' weights bit-equal after 3 bf16
+     steps, each rank's step ms (not a scaling figure); (c) each rank's
+     peak card memory over a bf16 forward of one 4096² window at spatial
+     1, 2 and 4 (four more spawned ranks); offset_copy's count read in
+     every spawned rank (0: not on this path). The CLI and then the
+     two-rank spawn run alone on the card; the four ranks at spatial 4,
+     which read peak memory only, run beside 9c's quality gate (which
+     times nothing);
   10. last, as the profiler slows later launches: the device time of every
      kernel, its plain version and its library call at the shapes above
      (the union of the traced device intervals, host overhead left out;
@@ -263,7 +288,7 @@ BN_SITES_PARITY = [(32, 256, 2), (64, 256, 2), (64, 128, 7), (128, 64, 10),
 BN_RAGGED = [(3, 3, 37, 41), (5, 1, 17, 13)]  # (N, C, H, W): C = 3 and 1, odd N·H·W
 PARITY_STEM_SITE = (32, 256)  # (C, H = W): read alone for its device time
 TRAIN_EPOCHS = 1      # CLI training: 1 epoch of 64 // 16 = 4 steps
-TRAIN_STEPS = 6       # in-process timed steps
+TRAIN_STEPS = 4       # in-process timed steps
 PROFILED_STEPS = 3
 GRAD_REL_L2 = 5e-2    # kernel vs plain step, per parameter tensor (bf16 convs)
 GRAD_FLOOR = 1e-2     # ... relative to at least this share of the gradients' RMS
@@ -279,7 +304,7 @@ PARITY = dict(arch="xresnet34", n_out=N_OUT, c_in=3, self_attention=True, tpu_op
 SA_GAMMA = 0.5        # γ = 0 (its init) would make the attention an identity
 PARITY_ODD = 402      # a window side not divisible by 4: the resize path
 PARITY_EPOCHS = 1     # CLI training: 1 epoch of 64 // 16 = 4 steps
-PARITY_STEPS = 6      # in-process timed parity steps
+PARITY_STEPS = 4      # in-process timed parity steps
 PIPE_EPOCHS = 1       # the pipeline's focal training: 1 epoch of the tiled scene
 PIPE_STEPS = 3        # in-process focal steps before its kernel-vs-plain step
 AGREE = 0.9999        # the pipeline's mosaics: host merge, device merge, serve
@@ -310,7 +335,7 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+def cuda_ms(fn, reps: int = 10) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events),
     after one warm run."""
     fn()
@@ -1652,14 +1677,14 @@ def op_device_ms(prof) -> dict:
     return out
 
 
-def run_cli(args: list, what: str, quiet: bool = False) -> tuple:
-    """``python -m unet_tpu_torch <args>`` in a subprocess: (wall seconds,
-    standard output); a nonzero exit raises. With ``quiet`` only the last
-    lines of its output are logged."""
+def run_cli(args: list, what: str, quiet: bool = False, env: dict = None) -> tuple:
+    """``python -m unet_tpu_torch <args>`` in a subprocess (``env`` added to
+    its environment): (wall seconds, standard output); a nonzero exit
+    raises. With ``quiet`` only the last lines of its output are logged."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "unet_tpu_torch", *map(str, args)],
                           cwd=ROOT, capture_output=True, text=True, timeout=900,
-                          env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
+                          env={**os.environ, "UNET_TPU_TRACEBACK": "1", **(env or {})})
     wall = time.perf_counter() - t0
     out = proc.stdout + proc.stderr
     log("\n".join(out.splitlines()[-8:]) if quiet and proc.returncode == 0 else out)
@@ -2888,7 +2913,8 @@ def ddp_phase(tmp: Path, tiles: Path) -> dict:
           f"start; {steps} steps of {BATCH // DDP_WORLD} tiles a rank; rank 0 launches "
           f"{st['launches']}; history {st['history'][0]['dice_multi']:.4f} dice; one bundle "
           f"(rank 0's), over gloo ({mesh.BACKEND_ENV}=gloo); without it: {refusal}")
-    out.update(cli_launches=st["launches"], cli_s=cli_s, seconds=time.perf_counter() - t0)
+    out.update(cli_launches=st["launches"], cli_s=cli_s, seconds=time.perf_counter() - t0,
+               one_fp32=one["fp32"])  # phase 12 holds its spatial step against it
     return out
 
 
@@ -2908,6 +2934,7 @@ def mesh_doctor_phase() -> dict:
 ART_INT8_RATIO = 0.35  # int8 / float artifact bytes, the JAX package's bar (tests/test_artifact.py)
 ART_INT8_AGREE = 0.97  # int8 artifact class agreement with the live bundle (tests/test_artifact.py)
 ART_PROB_ATOL = 1e-5   # float32 artifact against the live bundle, TF32 off
+ART_SLOW = 1.5         # a warm artifact forward past this multiple of the bundle's is traced
 VARIANTS = ("", "slice:8", "group:32")  # phase 11d's UNET_TPU_BN values ("" = unset)
 SLICE_K = 8
 VARIANT_STEPS = 3      # timed steps of each variant and of remat on/off
@@ -2975,6 +3002,34 @@ def serve_map(pred, scene: Path, out=None, streamed: bool = False, **kw):
     return arr, time.perf_counter() - t0, blend_and_count.launches, pred.scenes[-1]
 
 
+def forward_split(preds: dict, x: np.ndarray) -> dict:
+    """Each predictor's median forward of the batch ``x`` over 5 (CUDA
+    events), then one forward under torch.profiler: wall ms (to a
+    synchronize), the card's busy ms (the union of its traced intervals)
+    and the host's top ops by self CPU time, printed."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, pred in preds.items():
+        median = cuda_ms(lambda pred=pred: pred.predict_batch_device(x), reps=5)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            pred.predict_batch_device(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n_dev = device_busy_s(prof)
+        top = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+        out[name] = {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "device_events": n_dev,
+                     "median_ms": median,
+                     "top_host_ms": [(e.key, e.self_cpu_time_total / 1e3) for e in top]}
+        print(f"{name} forward of {len(x)} × {PATCH}²: median {median:.2f} ms over 5 (CUDA "
+              f"events); one under torch.profiler: wall "
+              f"{wall * 1e3:.2f} ms, card busy {busy * 1e3:.2f} ms over {n_dev} device events "
+              f"({100 * busy / wall:.1f}% of the wall); top host ops by self CPU: "
+              + "; ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in out[name]["top_host_ms"]))
+    return out
+
+
 def artifact_serve_phase(dev, tmp: Path, bundle: Path, arts: dict, transform, crs,
                          live_cli: dict, pred_tiles: Path) -> dict:
     """11b: the 4096² scene through the float artifact. Cold through
@@ -3030,8 +3085,7 @@ def artifact_serve_phase(dev, tmp: Path, bundle: Path, arts: dict, transform, cr
     print("load seconds in process: "
           + ", ".join(f"{k} {v:.2f}" for k, v in load_s.items()))
     warm = {}
-    for name, pred in (("bundle", live), ("artifact", art)):
-        serve_map(pred, scene)  # warm-up
+    for name, pred in (("bundle", live), ("artifact", art)):  # each after its first batch
         arr, secs, n, rec = serve_map(pred, scene)
         warm[name] = {"map": arr, "seconds": secs, "tiles_per_s": n_win / secs, "launches": n,
                       "forward_ms": float(np.median(pred.forward_ms()[-n_batches:]))}
@@ -3045,6 +3099,10 @@ def artifact_serve_phase(dev, tmp: Path, bundle: Path, arts: dict, transform, cr
         if n != rec["adds"]:
             raise AssertionError(f"streamed {name} serve: {n} launches, {rec['adds']} adds")
     n_stream = warm["artifact_stream"]["launches"]
+    slow = warm["artifact"]["forward_ms"] / warm["bundle"]["forward_ms"]
+    print(f"float artifact's warm forward {slow:.2f}x the bundle's"
+          + (f" (past {ART_SLOW}x: one forward of each is traced in phase 10, where the "
+             "profiler runs)" if slow > ART_SLOW else f" (traced past {ART_SLOW}x: not traced)"))
     tta = {}
     art_tta = copy.copy(art)  # the loaded program and weights; the flips compose outside
     art_tta.tta = True
@@ -3112,7 +3170,9 @@ def artifact_serve_phase(dev, tmp: Path, bundle: Path, arts: dict, transform, cr
     if agree8 <= ART_INT8_AGREE:
         raise AssertionError(f"int8 artifact agrees on {agree8}")
     return {"art32": art32, "live32": live32, "predict_cli": predict_cli,
-            "cold": cold, "warm": warm, "tta": tta,
+            "cold": cold, "warm": warm, "tta": tta, "slow": slow,
+            "split_preds": ({"artifact": art, "bundle": live, "x": x0} if slow > ART_SLOW
+                            else None),
             "agree": agree, "prob_err": prob_err, "agree_int8": agree8,
             "export32_s": export32_s, "load_s": load_s,
             "launches": {"serve_cli_whole": cold["launches"],
@@ -3459,6 +3519,291 @@ def artifact_variants_phase(dev, tmp: Path, bundle: Path, pred_tiles: Path,
             "offset_copy_launches": probe.offset_copy.launches}
 
 
+SPATIAL = 2               # phase 12: the spatial serve's and train step's ranks (one card, gloo)
+SPATIAL_MEM = (1, 2, 4)   # the ranks of the 4096² window forwards whose peak memory is read
+SPATIAL_AGREE = 0.99      # the spatial CLI's bf16 map against the unsharded CLI's (JAX's bar)
+SPATIAL_PROB_ATOL = 1e-5  # the float32 spatial serve's probabilities against the unsharded
+
+
+def tensor_digest(tensors: dict) -> str:
+    """A hash of named tensors' bytes: ranks that agree bit for bit have
+    the same."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def window_forward(pred, hwc: np.ndarray) -> dict:
+    """One bf16 forward of the whole ``hwc`` scene as a single window
+    (after a warm one): its ms (CUDA events) and this process's peak card
+    memory over it (``max_memory_allocated`` after a reset), beside what
+    was resident before (the model)."""
+    x = hwc[None]
+    pred.predict_batch_device(x)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(pred.device)
+    resident = torch.cuda.memory_allocated(pred.device)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    pred.predict_batch_device(x)
+    e.record()
+    e.synchronize()
+    return {"peak_bytes": torch.cuda.max_memory_allocated(pred.device),
+            "resident_bytes": resident, "ms": s.elapsed_time(e)}
+
+
+def spatial_rank(rank: int, n_ranks: int, port: int, tmp: Path, bundle: Path,
+                 tiles: Path) -> None:
+    """One of ``n_ranks`` ranks on the one card over gloo. Every rank: a
+    4096² window's bf16 forward at spatial = ``n_ranks`` (peak memory);
+    rank 0 of two first at spatial 1. With two ranks also (a) the 4096²
+    scene served in float32 (TF32 off) at spatial 2, every class's
+    probabilities; rank 0 serves it at spatial 1 first and compares, with
+    its blend_count launches each way; (b) a float32 spatial train step
+    of the flagship at BATCH × 512² (TF32 off; loss, launches, gradients;
+    its kernels against their plain versions, held) and DDP_STEPS bf16
+    steps (step ms, a digest of the weights). offset_copy's count, set to
+    0 at the start, read at the end. Results to ``spatial<n>_rank<r>.pt``."""
+    from dataclasses import replace
+
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.ops import blend, probe
+    from unet_tpu_torch.parallel import mesh
+    from unet_tpu_torch.predict.predict import Predictor, predict_raster
+    from unet_tpu_torch.train.loop import Trainer
+
+    res = {}
+    probe.offset_copy.launches = 0
+    try:
+        mesh.init_distributed(f"127.0.0.1:{port}", n_ranks, rank, backend="gloo",
+                              device="cuda")
+        torch.cuda.set_device(mesh.rank_device("cuda"))
+        scene = tmp / "scene.tif"
+        hwc = np.ascontiguousarray(np.moveaxis(read_raster(scene).data, 0, 2))
+        if rank == 0 and n_ranks == SPATIAL:
+            res["mem1"] = window_forward(Predictor(str(bundle), batch_size=1), hwc)
+        res["mem"] = window_forward(Predictor(str(bundle), batch_size=1, spatial=n_ranks),
+                                    hwc)
+        if n_ranks == SPATIAL:
+            kw = dict(patch_size=PATCH, batch_size=BATCH, all_classes=True,
+                      dtype=torch.float32)
+            with tf32_off():
+                if rank == 0:
+                    one = Predictor(str(bundle), batch_size=BATCH, dtype=torch.float32)
+                    blend.blend_and_count.launches = 0
+                    p1 = predict_raster(str(bundle), str(scene), predictor=one, **kw)[0]
+                    res["serve_one_launches"] = blend.blend_and_count.launches
+                    del one
+                pred = Predictor(str(bundle), batch_size=BATCH, dtype=torch.float32,
+                                 spatial=SPATIAL)
+                blend.blend_and_count.launches = 0
+                t0 = time.perf_counter()
+                p2 = predict_raster(str(bundle), str(scene), predictor=pred,
+                                    spatial=SPATIAL, **kw)[0]
+                res["serve_s"] = time.perf_counter() - t0
+                res["serve_launches"] = blend.blend_and_count.launches
+                if rank == 0:
+                    margin = np.diff(np.sort(p1, axis=0)[-2:], axis=0)[0]
+                    same = p2.argmax(0) == p1.argmax(0)
+                    decided = margin >= 2 * SPATIAL_PROB_ATOL
+                    res["serve"] = {"prob_err": float(np.abs(p2 - p1).max()),
+                                    "classes_equal": float(same.mean()),
+                                    "decided_equal": bool(same[decided].all()),
+                                    "differ": int((~same).sum()),
+                                    "max_margin_where_differ": float(margin[~same].max())
+                                    if (~same).any() else None}
+                del pred
+                cfg = replace(ddp_config(tiles, tmp, False, BATCH), spatial=SPATIAL)
+                t = Trainer(cfg)
+                try:
+                    t.init_state()
+                    r = ddp_step(t)
+                    r["vs_plain"] = step_check(t, r["host"], f"spatial rank {rank} of "
+                                               f"{SPATIAL} (gloo, one card), float32")
+                    r["digest"] = tensor_digest(r["grads"])
+                    if rank:
+                        del r["grads"]
+                    res["fp32"] = r
+                finally:
+                    t.close()
+            t = Trainer(replace(ddp_config(tiles, tmp, True, BATCH), spatial=SPATIAL))
+            try:
+                t.init_state()
+                for _ in range(DDP_STEPS):
+                    t.train_step(*res["fp32"]["host"])
+                res["bf16"] = {"step_ms": t.step_ms(),
+                               "digest": tensor_digest(t.model.state_dict())}
+            finally:
+                t.close()
+            del res["fp32"]["host"]
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        res["offset_copy"] = probe.offset_copy.launches
+        mesh.close_distributed()
+        torch.save(res, tmp / f"spatial{n_ranks}_rank{rank}.pt")
+
+
+def spawn_spatial_ranks(n: int, tmp: Path, bundle: Path, daemon: bool = False) -> list:
+    """``n`` ``spatial_rank`` processes on a fresh loopback port, started
+    (``daemon``: stopped with this process if it fails first)."""
+    import multiprocessing
+
+    from unet_tpu_torch.parallel import mesh
+
+    ctx = multiprocessing.get_context("spawn")
+    port = mesh.free_port()
+    procs = [ctx.Process(target=spatial_rank, args=(r, n, port, tmp, bundle, tmp / "run_tiles"),
+                         daemon=daemon)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_spatial_ranks(procs: list, tmp: Path) -> list:
+    """Each result of ``spawn_spatial_ranks``' processes once they end (a
+    rank still running after 600 s is killed); a rank's error raises."""
+    n = len(procs)
+    try:
+        for p in procs:
+            p.join(600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    ranks = [torch.load(tmp / f"spatial{n}_rank{r}.pt", weights_only=False) for r in range(n)]
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            log(res["error"])
+            raise RuntimeError(f"spatial rank {r} of {n} failed")
+    return ranks
+
+
+def spatial_phase(tmp: Path, bundle: Path, live_cli: dict, one_step: dict,
+                  mem_procs: list) -> dict:
+    """Phase 12: spatial partitioning (the tile height over ranks with halo
+    exchanges) on the one card over gloo. (a) ``serve --spatial 2``
+    through the CLI (UNET_TPU_TORCH_BACKEND=gloo: the command starts its
+    two ranks) on the 4096² scene: bf16 map >= SPATIAL_AGREE equal to
+    phase 4's unsharded CLI map, rank 0's blend_count launches equal to
+    its; in process at float32 (TF32 off), probabilities within
+    SPATIAL_PROB_ATOL of the unsharded serve's and classes equal wherever
+    that bar decides them (top-two margin >= twice it), launches on rank 0
+    equal. (b) The float32 spatial step of the flagship at BATCH
+    × 512² against one process's (9d's, same tiles and draws; the bars of
+    8), (43, 43, 1) launches a rank and step, the kernels against their
+    plain versions on each rank, the ranks' weights bit-equal after
+    DDP_STEPS bf16 steps, each rank's step ms (ranks sharing one card:
+    not a scaling figure). (c) Each rank's peak card memory over a bf16
+    forward of one 4096² window at spatial 1, 2 and 4. The CLI and then
+    the two-rank spawn run alone on the card; ``mem_procs`` are the four
+    ranks of (c) at spatial 4, which ``main`` starts beside 9c's quality
+    gate (peak memory is each process's own; their forward ms are not a
+    time figure). offset_copy must launch in no spawned rank."""
+    from unet_tpu_torch.geo import read_raster
+    from unet_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    cli_out, cli_stats = tmp / "spatial_cli.tif", tmp / "spatial_cli.json"
+    cli_s = run_cli(["serve", bundle, tmp / "scene.tif", cli_out, "--patch-size", PATCH,
+                     "--batch-size", BATCH, "--spatial", SPATIAL, "--stats-json", cli_stats],
+                    f"serve --spatial {SPATIAL}", True, {mesh.BACKEND_ENV: "gloo"})[0]
+    ranks = {SPATIAL: join_spatial_ranks(spawn_spatial_ranks(SPATIAL, tmp, bundle), tmp),
+             max(SPATIAL_MEM): join_spatial_ranks(mem_procs, tmp)}
+    offset_copy = {f"spatial{n}_ranks": [res["offset_copy"] for res in rs]
+                   for n, rs in ranks.items()}
+    if any(c for counts in offset_copy.values() for c in counts):
+        raise AssertionError(f"offset_copy launched on the spatial path: {offset_copy}")
+
+    # (a) serve
+    st = json.loads(cli_stats.read_text())
+    cli_map, one_map = read_raster(cli_out).data[0], read_raster(tmp / "out.tif").data[0]
+    agree = float((cli_map == one_map).mean())
+    cli_launches = st["launches"]["blend_count"]
+    print(f"serve --spatial {SPATIAL} through the CLI (two gloo ranks on one card, bf16, "
+          f"alone on the card): {cli_s:.1f} s with process start ({st['seconds']:.2f} s of serve, "
+          f"{st['tiles_per_s']:.1f} tiles/s); class map {100 * agree:.4f}% equal to phase 4's "
+          f"unsharded CLI map; rank 0's blend_count launches {cli_launches} (unsharded "
+          f"{live_cli['launches']['blend_count']}); rank 0's peak card memory "
+          f"{st['peak_device_bytes'] / 1e9:.2f} GB (unsharded {live_cli['peak_device_bytes'] / 1e9:.2f})")
+    if agree < SPATIAL_AGREE or cli_launches != live_cli["launches"]["blend_count"] \
+            or st["spatial"] != SPATIAL:
+        raise AssertionError(f"serve --spatial {SPATIAL}: agreement {agree}, launches "
+                             f"{cli_launches}")
+    r0, r1 = ranks[SPATIAL]
+    sv = r0["serve"]
+    print(f"spatial {SPATIAL} serve in process, float32, TF32 off, 4096² all-class mosaic: "
+          f"max |Δp| {sv['prob_err']:.3e} against the unsharded serve, class maps "
+          f"{100 * sv['classes_equal']:.5f}% equal ({sv['differ']} pixels differ, at top-two "
+          f"margins up to {sv['max_margin_where_differ']}; every pixel whose margin is >= "
+          f"{2 * SPATIAL_PROB_ATOL:g} equal: {sv['decided_equal']}); blend_count launches on "
+          f"rank 0 {r0['serve_launches']} (unsharded {r0['serve_one_launches']}), rank 1 "
+          f"{r1['serve_launches']}; {r0['serve_s']:.2f} s")
+    if sv["prob_err"] > SPATIAL_PROB_ATOL or not sv["decided_equal"] \
+            or r0["serve_launches"] != r0["serve_one_launches"] or r1["serve_launches"]:
+        raise AssertionError(f"spatial serve: {sv}, launches {r0['serve_launches']} / "
+                             f"{r0['serve_one_launches']} / {r1['serve_launches']}")
+
+    # (b) train
+    f0, f1 = r0["fp32"], r1["fp32"]
+    if f0["loss"] != f1["loss"] or f0["digest"] != f1["digest"]:
+        raise AssertionError("spatial step: the ranks' reduced gradients differ")
+    for f in (f0, f1):
+        if f["launches"] != (43, 43, 1):
+            raise AssertionError(f"spatial step: a rank launched {f['launches']}")
+    loss_rel = abs(f0["loss"] - one_step["loss"]) / abs(one_step["loss"])
+    (worst, name), median = grad_errors(f0["grads"], one_step["grads"])
+    print(f"spatial {SPATIAL} (gloo, one card) vs 1 process, float32 step on the same {BATCH} "
+          f"tiles, TF32 off: loss {f0['loss']:.6f} vs {one_step['loss']:.6f} (rel "
+          f"{loss_rel:.2e}); gradients per tensor median {median:.2e}, worst {worst:.2e} "
+          f"({name}); launches per rank {f0['launches']}; kernels vs plain on each rank: "
+          + "; ".join(f"rank {r} loss rel {lr:.2e}, worst gradient {w:.2e}"
+                      for r, (lr, w) in enumerate((f0["vs_plain"], f1["vs_plain"]))))
+    if loss_rel > 1e-3 or worst > GRAD_REL_L2:
+        raise AssertionError("the spatial step disagrees with one process's")
+    if r0["bf16"]["digest"] != r1["bf16"]["digest"]:
+        raise AssertionError(f"after {DDP_STEPS} spatial steps the ranks' weights differ")
+    step_ms = [float(np.median(r["bf16"]["step_ms"][1:])) for r in (r0, r1)]
+    print(f"after {DDP_STEPS} bf16 spatial steps the ranks' weights and running statistics "
+          f"are bit-equal; a rank's bf16 step of {BATCH} × {PATCH}² rows 1/{SPATIAL}: "
+          + ", ".join(f"rank {r} {ms:.1f} ms" for r, ms in enumerate(step_ms))
+          + " median after the first (ranks sharing one card over gloo: not a scaling "
+          "figure)")
+
+    # (c) memory
+    mem = {1: [r0["mem1"]], SPATIAL: [r["mem"] for r in ranks[SPATIAL]],
+           max(SPATIAL_MEM): [r["mem"] for r in ranks[max(SPATIAL_MEM)]]}
+    for n in SPATIAL_MEM:
+        print(f"one {SCENE}² window, bf16 forward at spatial {n}: peak card memory a rank "
+              + ", ".join(f"{m['peak_bytes'] / 2**30:.3f}" for m in mem[n])
+              + f" GiB (resident before: {mem[n][0]['resident_bytes'] / 2**30:.3f} GiB); "
+              "forward ms a rank " + ", ".join(f"{m['ms']:.1f}" for m in mem[n])
+              + (" (beside 9c's quality gate: not a time figure)" if n == max(SPATIAL_MEM)
+                 else " (ranks sharing one card: not a scaling figure)"))
+    secs = time.perf_counter() - t0
+    print(f"phase 12: {secs:.1f} s")
+    return {"seconds": secs, "cli_s": cli_s, "agree": agree, "serve": sv,
+            "launches": {"blend_count": {"serve_cli_rank0": cli_launches,
+                                         "serve_rank0": r0["serve_launches"],
+                                         "serve_rank1": r1["serve_launches"],
+                                         "serve_unsharded": r0["serve_one_launches"]},
+                         **{k: {"rank_step": [f0["launches"][i], f1["launches"][i]]}
+                            for i, k in enumerate(("bn_sum_sumsq", "bn_bwd_sums",
+                                                   "flip_scale"))},
+                         "offset_copy": offset_copy},
+            "loss_rel": loss_rel, "grad_worst": worst, "step_ms": step_ms,
+            "peak_bytes": {n: [m["peak_bytes"] for m in mem[n]] for n in SPATIAL_MEM}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3723,7 +4068,9 @@ def main() -> int:
                                            tiled["pipe"], transform, crs)
 
         log(f"-- phase 9c at {time.perf_counter() - t_start:.1f} s")
-        # 9c. the quality gate on the card
+        # 9c. the quality gate on the card; beside it (the gate times
+        # nothing) phase 12c's four spatial ranks, which read peak memory
+        mem_procs = spawn_spatial_ranks(max(SPATIAL_MEM), tmp, bundle, daemon=True)
         gate = gate_phase(tmp)
 
         log(f"-- phase 9d at {time.perf_counter() - t_start:.1f} s")
@@ -3747,6 +4094,11 @@ def main() -> int:
         art11 = artifact_variants_phase(dev, tmp, piped["bundle"], tiled["pred"],
                                         tmp / "pipeline_device.tif", tiles, transform, crs,
                                         stats)
+
+        log(f"-- phase 12 at {time.perf_counter() - t_start:.1f} s")
+        # 12. spatial partitioning on the one card over gloo: serve --spatial
+        # 2 (CLI and in process), a spatial train step, per-rank memory
+        sp12 = spatial_phase(tmp, bundle, stats, ddp.pop("one_fp32"), mem_procs)
 
         log(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
         # 10. under torch.profiler, after every kernel timing (the profiler
@@ -3826,6 +4178,11 @@ def main() -> int:
             for label, ms in named.items()))
         trainer.close()
         par_trainer.close()
+        split = art11["serve"].pop("split_preds")
+        if split is not None:  # ROADMAP §3 item 3: the card's time against the host's
+            x_split = split.pop("x")
+            art11["serve"]["split"] = forward_split(split, x_split)
+            del split
 
     cuda_src = "unet_tpu_torch/ops/csrc/"
     train_launches = trained["launches"]
@@ -3913,6 +4270,11 @@ def main() -> int:
     if min(artifact_variants["blend_count"].values()) <= 0:
         raise AssertionError(f"blend_count was not launched on an artifact path: "
                              f"{artifact_variants['blend_count']}")
+    spatial = sp12["launches"]  # each kernel's launches in phase 12, counts set to 0 before each
+    if min(spatial["blend_count"]["serve_cli_rank0"], spatial["blend_count"]["serve_rank0"],
+           *(min(spatial[k]["rank_step"]) for k in ("bn_sum_sumsq", "bn_bwd_sums",
+                                                     "flip_scale"))) <= 0:
+        raise AssertionError(f"a kernel was not launched on a path of phase 12: {spatial}")
     for kname in ("bn_sum_sumsq", "bn_bwd_sums", "flip_scale"):
         n = run_resume_ddp[kname]
         if n["run_main"] <= 0 or min(n["ddp_rank_step"]) <= 0 or n["ddp_cli_rank0"] <= 0:
@@ -3955,7 +4317,7 @@ def main() -> int:
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
          "pipeline": pipeline[kname], "any_size": any_size[kname],
          "train_surface": train_surface[kname], "run_resume_ddp": run_resume_ddp[kname],
-         "artifact_variants": artifact_variants[kname]}
+         "artifact_variants": artifact_variants[kname], "spatial": spatial[kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

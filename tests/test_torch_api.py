@@ -23,6 +23,7 @@ from unet_tpu_torch import api
 from unet_tpu_torch.__main__ import cli
 from unet_tpu_torch.geo import read_raster, write_raster
 from unet_tpu_torch.models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
+from unet_tpu_torch.parallel import mesh
 from unet_tpu_torch.train import checkpoint as ckpt
 from unet_tpu_torch.utils import multirun, params_json
 
@@ -200,12 +201,15 @@ def test_stage_call_sequence_matches_jax(recorded, tmp_path, multi):
     ("spatial", 2, dict(Create_tiles=True)),
     ("predict_model", "uta", dict(Predict=True, validation_vision=False))])
 def test_unported_fields_are_refused_before_any_stage(recorded, tmp_path, field, value,
-                                                      stages):
+                                                      stages, monkeypatch):
     """Each field whose feature is not ported is named, before any stage
     runs; a JSON config then exits 2 through ``run``. The two fields
     ported since (``visualize_data_example``, ``validation_vision``) pass
     the check: ``run`` calls the stages with the field set, as JAX's
-    does."""
+    does. ``spatial``, ported since, passes it too: ``main``,
+    ``main_multi`` and ``run`` hand the whole run to the launcher
+    (``mesh.launch``, recorded here) and run no stage themselves; a rank's
+    failure raises, and ``run`` exits 2."""
     base = dict(Create_tiles=True, Train=True, Predict=True, visualize_data_example=False,
                 validation_vision=False, image_path="a.tif", base_dir="t")
     base.update(stages)
@@ -225,6 +229,28 @@ def test_unported_fields_are_refused_before_any_stage(recorded, tmp_path, field,
         got = (recorded["port"][1][1]["visualize_data_example"]
                if field == "visualize_data_example" else recorded["port"][2][1][9])
         assert got is True
+        return
+    if field == "spatial":
+        launched, rc = [], [0]
+
+        def launch(n, target, args=(), device="cuda"):
+            launched.append((n, target, args[0].spatial, device))
+            return rc[0]
+
+        monkeypatch.setattr(mesh, "launch", launch)
+        api.check_ported(p)
+        api.main(p)
+        api.main_multi(p)
+        (tmp_path / "c.json").write_text(json.dumps(base))
+        assert cli(["run", str(tmp_path / "c.json"), "--device", "cpu"]) == 0
+        assert launched == [(2, "unet_tpu_torch.api:main", 2, "cpu"),
+                            (2, "unet_tpu_torch.api:main_multi", 2, "cpu"),
+                            (2, "unet_tpu_torch.api:main", 2, "cpu")]
+        rc[0] = 3
+        with pytest.raises(RuntimeError, match="spatial=2: a rank exited with code 3"):
+            api.main(p)
+        assert cli(["run", str(tmp_path / "c.json"), "--device", "cpu"]) == 2
+        assert recorded["port"] == []
         return
     for main in (api.main, api.main_multi):
         with pytest.raises(NotImplementedError, match=f"not yet ported: .*{field.split('_')[0]}"):

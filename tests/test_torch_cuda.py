@@ -858,3 +858,115 @@ def test_remat_step_moves_running_statistics_once(dev):
     num = sum(float((a - b).pow(2).sum()) for a, b in zip(out[True][1], out[False][1]))
     den = sum(float(b.pow(2).sum()) for b in out[False][1])
     assert (num / den) ** 0.5 <= 1e-5
+
+
+SPATIAL_TOPOLOGIES = {"tpu_opt": dict(tpu_opt=True),
+                      "parity_sa": dict(tpu_opt=False, self_attention=True)}
+
+
+def _spatial_model(kw: dict):
+    from unet_tpu_torch.models import build_unet, init_weights
+    from unet_tpu_torch.models.layers import SelfAttention
+
+    model = init_weights(build_unet("xresnet18", n_out=3, c_in=3, dtype=torch.float32, **kw),
+                         torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            m.gamma.data.fill_(0.5)
+    return model
+
+
+def _spatial_train_grads(model, x, dy, scope):
+    """Training-mode forward and backward of ``sum(logits · dy)`` on this
+    rank's rows of ``x`` (the whole batch without a scope), BatchNorm over
+    the world; the parameters' gradients summed over the ranks."""
+    import torch.distributed as dist
+
+    from unet_tpu_torch.models.layers import sync_batch_norm
+    from unet_tpu_torch.parallel import halo
+
+    sync_batch_norm(model, None if scope is None else dist.group.WORLD)
+    model.train()
+    with halo.space_scope(scope):
+        y = model(halo.split_rows(x, 2, scope) if scope else x)
+        (y * (halo.split_rows(dy, 2, scope) if scope else dy)).sum().backward()
+    grads = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    if scope is not None:
+        dist.all_reduce(grads)
+    return grads.cpu()
+
+
+def _spatial_forward_rank(rank, port, x, out):
+    """One of two gloo ranks on the card: each topology's forward on this
+    rank's rows (TF32 off), the rows gathered; then a training step of
+    tpu_opt with remat (the backward recomputes the blocks, and their halo
+    exchanges, on autograd's thread), its gradients summed."""
+    from unet_tpu_torch.parallel import halo, mesh
+
+    res = {}
+    try:
+        mesh.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        scope = mesh.space_layout(2)
+        dev = mesh.rank_device("cuda")
+        for name, kw in SPATIAL_TOPOLOGIES.items():
+            model = _spatial_model(kw).to(dev)
+            with torch.no_grad(), halo.space_scope(scope):
+                local = model(halo.split_rows(x.to(dev), 2, scope))
+            res[name] = halo.gather_rows(local, 2, scope).cpu()
+        model = _spatial_model(dict(tpu_opt=True, remat=True)).to(dev)
+        res["remat_grads"] = _spatial_train_grads(model, x.to(dev), _spatial_dy(x).to(dev),
+                                                  scope)
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        mesh.close_distributed()
+        torch.save(res, out)
+
+
+def _spatial_dy(x):
+    return torch.randn((x.shape[0], 3, *x.shape[2:]), generator=torch.Generator().manual_seed(2))
+
+
+def test_spatial_forward_over_two_ranks_matches_unsharded(dev, tmp_path):
+    """Spatial partitioning on the card: two gloo ranks each hold half the
+    rows of a (2, 3, 128, 128) batch; the gathered float32 logits (TF32
+    off) of tpu_opt and of parity with self-attention equal the unsharded
+    forward on the card within JAX's bars (atol 1e-5, rtol 1e-4), and the
+    ranks' gathered logits are bit-equal. A tpu_opt training step with
+    remat over the two ranks: its summed gradients within 1e-2 relative
+    L2 of the unsharded step's without remat (the BatchNorm sums of two
+    halves in float32; 6.9e-4 on the CPU), bit-equal on the two ranks."""
+    import multiprocessing as mp
+
+    from unet_tpu_torch.parallel import mesh
+
+    x = torch.randn((2, 3, 128, 128), generator=torch.Generator().manual_seed(1))
+    port = mesh.free_port()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_spatial_forward_rank, args=(r, port, x, tmp_path / f"r{r}.pt"))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    assert not any(p.is_alive() for p in procs)
+    ranks = [torch.load(tmp_path / f"r{r}.pt", weights_only=False) for r in range(2)]
+    assert all("error" not in r for r in ranks), [r.get("error") for r in ranks]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, kw in SPATIAL_TOPOLOGIES.items():
+            with torch.no_grad():
+                want = _spatial_model(kw).to(dev)(x.to(dev)).cpu()
+            assert torch.equal(ranks[0][name], ranks[1][name])
+            torch.testing.assert_close(ranks[0][name], want, atol=1e-5, rtol=1e-4)
+        want = _spatial_train_grads(_spatial_model(dict(tpu_opt=True)).to(dev), x.to(dev),
+                                    _spatial_dy(x).to(dev), None)
+        got = ranks[0]["remat_grads"]
+        assert torch.equal(got, ranks[1]["remat_grads"])
+        assert float((got - want).norm()) <= 1e-2 * float(want.norm())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

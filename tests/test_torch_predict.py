@@ -252,7 +252,8 @@ def test_resident_predictor_and_unported_arguments(setup, tmp_path, capsys):
     """A resident predictor merges as a fresh one does; with masks beside
     the tiles, ``validation_vision`` prints the tile-majority matrix (over
     the 12 tiles) and report of the written tiles and draws the figures;
-    ``spatial`` > 1 is refused."""
+    ``spatial`` > 1 outside a process group of as many ranks raises,
+    naming the launcher."""
     pred = tp.Predictor(setup["bundles"]["cls"], batch_size=BATCH, device="cpu",
                         dtype=torch.float32)
     src = tmp_path / "t" / "img_tiles"
@@ -276,7 +277,7 @@ def test_resident_predictor_and_unported_arguments(setup, tmp_path, capsys):
     assert classification_report(y_true, y_pred, zero_division=1) in out
     assert sorted(p.name for p in (out_dir / "Valid_figures").glob("*.png")) == [
         "Confusion_Matrix.png", "classification_report.png"]
-    with pytest.raises(NotImplementedError, match="spatial.*not yet ported"):
+    with pytest.raises(ValueError, match="spatial=2 needs that many devices, have 1.*launch"):
         tp.save_predictions(setup["bundles"]["cls"], str(src), device="cpu", spatial=2)
     with pytest.raises(ValueError, match="requires uint8"):
         tp.save_predictions(setup["bundles"]["cls"], str(src), large_file=True,
@@ -315,7 +316,9 @@ def test_predict_cli_matches_jax_cli(setup, tmp_path, capsys):
 def test_cli_unported_predict_options_fail_clearly(setup, tmp_path, flag, capsys):
     """Unported options, and a ``.uta`` model whose header is not an
     artifact's, exit 2 with one clear line. ``--validation-vision``, ported
-    since, exits 0 and prints the matrix of the tiles with masks beside."""
+    since, exits 0 and prints the matrix of the tiles with masks beside;
+    ``--spatial 2``, ported since, starts two gloo ranks on the CPU, exits
+    0 and writes tiles >= 99% equal to one process's (bf16; JAX's bar)."""
     model, said = setup["bundles"]["cls"], "not yet ported"
     tiles = setup["root"] / "tiles" / "img_tiles"
     if flag == ["--validation-vision"]:
@@ -326,6 +329,18 @@ def test_cli_unported_predict_options_fail_clearly(setup, tmp_path, flag, capsys
         out = capsys.readouterr().out
         assert "Confusion Matrix:" in out and "Classification Report:" in out
         assert (tiles.parent / "predicted_tiles_m" / "Valid_figures").is_dir()
+        return
+    if flag == ["--spatial", "2"]:
+        outs = []
+        for extra in ([], flag):
+            tiles = tmp_path / f"s{len(extra)}" / "img_tiles"
+            shutil.copytree(setup["root"] / "tiles" / "img_tiles", tiles)
+            assert cli(["predict", model, str(tiles), "--device", "cpu", "--batch-size",
+                        str(BATCH), *extra]) == 0
+            outs.append(sorted((tiles.parent / "predicted_tiles_m").glob("*.tif")))
+        assert [p.name for p in outs[0]] == [p.name for p in outs[1]] and len(outs[0]) == 12
+        same = [(read_raster(a).data == read_raster(b).data).mean() for a, b in zip(*outs)]
+        assert np.mean(same) >= 0.99
         return
     if flag == ["uta"]:
         model, flag, said = str(tmp_path / "model.uta"), [], "not a readable serving artifact"

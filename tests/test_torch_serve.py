@@ -191,9 +191,11 @@ def test_cli_stream_on_cpu(served, tmp_path):
 
 @pytest.mark.parametrize("case", ["spatial", "artifact"])
 def test_cli_unported_options_fail_clearly(served, tmp_path, case, capsys):
-    """``--spatial 2`` (not yet ported) and a ``.uta`` model whose header
-    is not an artifact's each exit 2 with one clear line."""
-    model, flag, said = served["bundle"], ["--spatial", "2"], "not yet ported"
+    """``--spatial 2`` with windows whose height does not split into two
+    ranks' rows (32 < 32·2) and a ``.uta`` model whose header is not an
+    artifact's each exit 2 with one clear line, before any rank starts."""
+    model, flag, said = (served["bundle"], ["--spatial", "2", "--patch-size", "32"],
+                         "divisible by 32·2 = 64")
     if case == "artifact":
         model, flag, said = str(tmp_path / "m.uta"), [], "not a readable serving artifact"
         with open(model, "wb") as f:

@@ -24,6 +24,13 @@ on the card by the ``blend_count`` kernel).
 it fits, else a band of rows on the card over the scene in RAM, else (past
 the host budget, or with ``--stream``) windowed reads with the finished
 rows streamed to the output file.
+``predict --spatial N`` and ``serve --spatial N`` shard the tile height
+over N ranks with halo exchanges (JAX's ``space`` mesh axis): the command
+starts the N ranks itself, one a card (``UNET_TPU_TORCH_BACKEND=gloo``
+lets them share a card; ``--device cpu`` runs them on the CPU over gloo),
+and rank 0 prints and writes; ``run`` does the same for a config whose
+``spatial`` is N. A ``.uta`` artifact with ``--spatial`` is refused, as in
+``unet_tpu``.
 ``export`` freezes a bundle's prediction program with ``torch.export``
 into a ``.uta`` serving artifact (weights beside it, int8 with
 ``--quantize int8``); ``predict`` and ``serve`` take an artifact wherever
@@ -156,7 +163,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "blend_count kernel) instead of on the host")
     pr.add_argument("--batch-size", type=int, default=16)
     pr.add_argument("--spatial", type=int, default=1,
-                    help="shard tile height over devices (not yet ported)")
+                    help="shard tile height over this many ranks, one a card "
+                         "(halo exchanges), for tiles too big for one card")
     pr.add_argument("--tta", action="store_true",
                     help="4-fold flip test-time augmentation (averaged "
                          "probabilities; 4x forward cost)")
@@ -183,7 +191,8 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--class-zero", action="store_true",
                     help="0 = nodata: decrement classes on write")
     sv.add_argument("--spatial", type=int, default=1,
-                    help="shard patch height over devices (not yet ported)")
+                    help="shard patch height over this many ranks, one a card "
+                         "(halo exchanges), for patches too big for one card")
     sv.add_argument("--tta", action="store_true",
                     help="4-fold flip test-time augmentation (averaged "
                          "probabilities; 4x forward cost)")
@@ -260,7 +269,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def cli(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    return rank_command(build_parser().parse_args(argv))
+
+
+def rank_command(args) -> int:
+    """Run the parsed command; the errors a user can act on exit 2 with
+    one line. What each rank of a spatial command runs (``mesh.launch``)."""
     if os.environ.get("UNET_TPU_TRACEBACK"):
         return _dispatch(args)
     try:
@@ -269,6 +283,32 @@ def cli(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         print("(set UNET_TPU_TRACEBACK=1 for the full traceback)", file=sys.stderr)
         return 2
+
+
+ARTIFACT_SPATIAL = ("--spatial needs a live model bundle (the artifact's program is "
+                    "frozen without sharding); export is for single-chip serving")
+
+
+def _launch_spatial(args) -> int:
+    """``predict``/``serve --spatial N`` without a process group: refuse a
+    ``.uta`` model (JAX's words) and a patch that does not split into N
+    ranks' rows, then start the N ranks (``mesh.launch``), each running the
+    command: 0 when every rank exits 0, else the first failing rank's code."""
+    from .parallel import mesh
+    from .predict.artifact import is_artifact
+
+    if is_artifact(args.model):
+        raise SystemExit(ARTIFACT_SPATIAL)
+    if args.command == "serve":
+        from .models.unet import check_spatial_height
+        from .train import checkpoint as ckpt
+
+        manifest = ckpt.load_manifest(ckpt.bundle_paths(args.model)[1])
+        check_spatial_height(manifest.get("ARCHITECTURE", "xresnet34"),
+                             int(args.patch_size or manifest.get("patch_size", 400)),
+                             args.spatial)
+    return mesh.launch(args.spatial, "unet_tpu_torch.__main__:rank_command", (args,),
+                       device=args.device)
 
 
 def train_kernel_launches() -> dict:
@@ -318,6 +358,11 @@ def _dispatch(args) -> int:
                          compress=_compress_arg(args))
         print(f"{n} tiles written to {args.base_dir}")
         return 0
+    if args.command in ("predict", "serve") and args.spatial > 1:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return _launch_spatial(args)
     if args.command == "predict":
         return _predict(args)
     if args.command == "export":
@@ -427,11 +472,14 @@ def _compress_arg(args):
 def _artifact_predictor(args):
     """An ``ArtifactPredictor`` on ``--device`` when the model argument is a
     ``.uta`` serving artifact, for the ``predictor=`` of every predict and
-    serve path; None for a bundle."""
+    serve path; None for a bundle. An artifact with ``--spatial`` is
+    refused (JAX's words)."""
     from .predict.artifact import is_artifact, load_artifact
 
     if not is_artifact(args.model):
         return None
+    if args.spatial > 1:
+        raise SystemExit(ARTIFACT_SPATIAL)
     return load_artifact(args.model, batch_size=args.batch_size, tta=args.tta,
                          device=args.device)
 
@@ -439,8 +487,6 @@ def _artifact_predictor(args):
 def _predict(args) -> int:
     from .predict.predict import save_predictions
 
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial > 1 is not yet ported")
     out = save_predictions(args.model, args.tiles, args.regression, args.merge,
                            args.all_classes, args.specific_class, args.large_file,
                            args.aoi, args.year, args.validation_vision,
@@ -461,17 +507,15 @@ def _serve(args) -> int:
     from .predict.predict import (Predictor, predict_raster, predict_raster_streamed,
                                   serve_scenes)
 
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial > 1 is not yet ported")
     compress = _compress_arg(args)
     predictor = _artifact_predictor(args) or Predictor(
         args.model, batch_size=args.batch_size, device=args.device,
-        dtype=torch.bfloat16, tta=args.tta)
+        dtype=torch.bfloat16, tta=args.tta, spatial=args.spatial)
     common = dict(patch_size=args.patch_size, patch_overlap=args.patch_overlap,
                   batch_size=args.batch_size, regression=args.regression,
                   all_classes=args.all_classes,
                   specific_class=args.specific_class,
-                  class_zero=args.class_zero, tta=args.tta,
+                  class_zero=args.class_zero, tta=args.tta, spatial=args.spatial,
                   predictor=predictor, out_compress=compress,
                   device=predictor.device, dtype=predictor.dtype)
     t0 = time.perf_counter()
@@ -490,7 +534,7 @@ def _serve(args) -> int:
         else:
             print(f"Mosaic {arr.shape} written to {args.output}")
     seconds = time.perf_counter() - t0
-    if args.stats_json:
+    if args.stats_json and predictor.primary:  # rank 0 reports for a spatial group
         scenes = predictor.scenes
         n_windows = sum(s["windows"] for s in scenes)
         stats = {
@@ -504,6 +548,7 @@ def _serve(args) -> int:
             "scenes": scenes,
             "launches": {"blend_count": blend_and_count.launches},
             "peak_device_bytes": _peak_device_bytes(predictor.device),
+            "spatial": args.spatial,
         }
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1)

@@ -8,7 +8,10 @@ is set), the list-broadcast multi-run entry point and the JSON-config front
 door, plus the ``device`` (default ``cuda``). Before any stage runs,
 ``main`` and ``main_multi`` refuse, by name, each field whose feature is
 not ported yet (``check_ported``), so a JSON config does not fail only
-after training.
+after training. With ``spatial`` = N > 1 and no process group, each
+starts N ranks (``parallel.mesh.launch``), one a card, that run it in a
+group: rank 0 tiles, every rank trains and predicts on its rows, rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Union
 
 from .data.augment import AugmentConfig
+from .parallel import mesh
 from .predict.artifact import is_artifact
 from .tiling import split_raster
 from .train.loop import TrainerConfig, train_model
@@ -99,7 +103,7 @@ class Params:
     predict_batch_size: int = 16
     checkpoint_every: int = 0
     resume: bool = False
-    spatial: int = 1  # > 1 not yet ported
+    spatial: int = 1  # shard tile height over N ranks (parallel/mesh.py)
     tta: bool = False
     grad_accum: int = 1
     tile_compress: Optional[str] = None
@@ -180,8 +184,6 @@ def check_ported(p: Params) -> None:
     """Raise ``NotImplementedError`` naming every field of ``p`` that asks
     for a feature the port does not have yet."""
     refused = []
-    if p.spatial > 1:
-        refused.append("spatial > 1 (set it to 1)")
     models = p.predict_model if isinstance(p.predict_model, (list, tuple)) else [p.predict_model]
     if p.Predict and any(m is not None and is_artifact(m) for m in models):
         refused.append("a .uta predict_model (the Predict stage loads a model bundle, "
@@ -203,7 +205,33 @@ def _start(p: Params) -> Params:
     return p
 
 
+def _launched(entry: str, p: Params) -> bool:
+    """With ``spatial`` > 1 and no process group: run ``entry`` (``main``
+    or ``main_multi``) in ``p.spatial`` ranks and return True (a rank's
+    failure raises ``RuntimeError``); else False."""
+    import torch.distributed as dist
+
+    if p.spatial <= 1 or dist.is_initialized():
+        return False
+    check_ported(apply_extra_parameter_gate(p))
+    code = mesh.launch(p.spatial, f"unet_tpu_torch.api:{entry}", (p,), device=p.device)
+    if code:
+        raise RuntimeError(f"spatial={p.spatial}: a rank exited with code {code}")
+    return True
+
+
+def _barrier() -> None:
+    """Every rank of the process group (if any) waits here."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _tile(p: Params, image_path, mask_path, base_dir) -> None:
+    """One scene's tiles; under a process group rank 0 writes them."""
+    if not mesh.is_primary():
+        return
     split_raster(
         path_to_raster=image_path,
         path_to_mask=mask_path,
@@ -221,14 +249,18 @@ def _tile(p: Params, image_path, mask_path, base_dir) -> None:
 
 def main(p: Params) -> None:
     """Stage dispatcher (params_and_main.py:121-180)."""
+    if _launched("main", p):
+        return
     start_time = time.time()
     p = _start(p)
 
     if p.Create_tiles:
         _tile(p, p.image_path, p.mask_path, p.base_dir)
+        _barrier()
 
     if p.Train:
         train_model(trainer_config(p))
+        _barrier()  # rank 0 has written the bundle the Predict stage loads
 
     if p.Predict:
         from .predict.predict import save_predictions
@@ -260,6 +292,8 @@ def main(p: Params) -> None:
 def main_multi(p: Params) -> None:
     """Multi-run entry point (create_tiles_train_predict_multi.py):
     list-valued paths/params are broadcast to a common length and looped."""
+    if _launched("main_multi", p):
+        return
     start_time = time.time()
     p = _start(p)
 
@@ -269,6 +303,7 @@ def main_multi(p: Params) -> None:
         for img, msk, base in zip(image_paths, broadcast(p.mask_path, n),
                                   broadcast(p.base_dir, n)):
             _tile(p, img, msk, base)
+        _barrier()
 
     if p.Train:
         model_paths = p.model_path if isinstance(p.model_path, (list, tuple)) else [p.model_path]
@@ -283,6 +318,7 @@ def main_multi(p: Params) -> None:
                 **{f: cols[f][i] for f in fields},
             )
             train_model(trainer_config(run))
+        _barrier()
 
     if p.Predict:
         from .predict.predict import save_predictions
@@ -292,12 +328,16 @@ def main_multi(p: Params) -> None:
         paths = broadcast(p.predict_path, n)
         merges = broadcast(p.merge, n)
         all_cls = broadcast(p.all_classes, n)
+        # JAX's multi-run predicts on a data-parallel mesh (no spatial, the
+        # call as JAX makes it); the ranks of a spatial run share each
+        # forward, so they pass it on
+        spatial = {"spatial": p.spatial} if p.spatial > 1 else {}
         for model, path, merge, ac in zip(models, paths, merges, all_cls):
             save_predictions(model, path, p.regression, merge, ac, p.specific_class,
                              p.large_file, p.AOI, p.year, p.validation_vision,
                              class_zero=p.class_zero, batch_size=p.predict_batch_size,
                              reference_quirks=p.reference_quirks,
-                             out_compress=p.predict_compress, device=p.device)
+                             out_compress=p.predict_compress, device=p.device, **spatial)
 
     elapsed = time.time() - start_time
     print(f"The operation took {elapsed:.2f} seconds or {elapsed / 60:.2f} minutes")

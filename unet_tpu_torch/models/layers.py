@@ -26,6 +26,18 @@ in the backward. ``recompute_context`` marks that second run: BatchNorm
 then leaves its running averages alone and SelfAttention reuses the power
 iteration of the first run, so the statistics and vectors move once a
 step, as flax's lifted ``nn.remat`` writes its variables once.
+
+Under a ``parallel.halo.space_scope`` (spatial partitioning: this rank
+holds rows [s·h, (s+1)·h) of every sample) each op that mixes rows does so
+across the space group, as GSPMD partitions it in JAX: a convolution or
+max pool pads H with its neighbours' rows (``halo.exchange``) and runs
+with H padding 0, the blur replicates the global top row only, the
+attention takes its sources' rows from every rank, GroupNorm sums each
+sample over the group and training BatchNorm counts every rank's rows (its
+group is then the world). 1×1 convolutions, the 4×4/4 stem, the k2-s2
+transposed convolutions and the space/depth permutations stay local;
+``resize_nearest`` raises there (tile heights divisible by 32·S never
+reach it).
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bn import KERNEL_REDUCTIONS, BatchNormTrain
+from ..parallel import halo
 
 BN_ENV = "UNET_TPU_BN"
 _state = threading.local()
@@ -76,11 +89,16 @@ def torch_pad(ks: int) -> int:
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` computing in its input's dtype (float32 weights are
-    cast on the fly, as flax casts ``param_dtype`` to ``dtype``)."""
+    cast on the fly, as flax casts ``param_dtype`` to ``dtype``). Under a
+    space scope H is padded with the neighbours' halo rows instead."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, self.padding)
+        padding = self.padding
+        if halo.current() is not None:
+            top, bottom = halo.conv_halo(self.kernel_size[0], self.stride[0], padding[0])
+            x, padding = halo.exchange(x, top, bottom, "zeros"), (0, padding[1])
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, padding)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -136,8 +154,10 @@ class BatchNorm(nn.Module):
         if not self.training:
             return batch_norm_eval(x, self.running_mean, self.running_var,
                                    self.weight, self.bias, self.eps)
+        scope = halo.current()
         y, mean, var = BatchNormTrain.apply(x, self.weight, self.bias, self.eps,
-                                            self.reductions, self.group, self.n_stat)
+                                            self.reductions, self.group, self.n_stat,
+                                            1 if scope is None else scope.size)
         if not recomputing():
             m = self.momentum
             with torch.no_grad():
@@ -164,7 +184,8 @@ class GroupNormAsBN(BatchNorm):
     and never read or written). Statistics in float32; the normalized
     values are cast to the input's dtype before the scale and bias, as
     JAX orders it. No cross-sample reduction, so no ``bn_stats`` kernel:
-    plain PyTorch, as JAX computes it outside any Pallas kernel."""
+    plain PyTorch, as JAX computes it outside any Pallas kernel. Under a
+    space scope each sample's sums run over the group's rows."""
 
     def __init__(self, c: int, groups: int = 32, eps: float = 1e-5):
         super().__init__(c, eps)
@@ -173,9 +194,16 @@ class GroupNormAsBN(BatchNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         xg = x.reshape(n, self.groups, c // self.groups, h, w).float()
-        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
-        var = torch.clamp((xg * xg).mean(dim=(2, 3, 4), keepdim=True) - mean * mean,
-                          min=0.0)
+        scope = halo.current()
+        if scope is None:
+            mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+            mean_sq = (xg * xg).mean(dim=(2, 3, 4), keepdim=True)
+        else:
+            count = xg[0, 0].numel() * scope.size
+            sums = halo.all_reduce(torch.stack([xg.sum(dim=(2, 3, 4), keepdim=True),
+                                                (xg * xg).sum(dim=(2, 3, 4), keepdim=True)]))
+            mean, mean_sq = sums[0] / count, sums[1] / count
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(n, c, h, w).to(x.dtype)
         shape = (1, -1, 1, 1)
         return y * self.weight.to(x.dtype).view(shape) + self.bias.to(x.dtype).view(shape)
@@ -278,8 +306,13 @@ class ConvLayer(nn.Module):
 
 
 def max_pool_torch(x: torch.Tensor, ks: int = 3, stride: int = 2) -> torch.Tensor:
-    """torch MaxPool2d(ks, stride, padding=ks//2)."""
-    return F.max_pool2d(x, ks, stride, torch_pad(ks))
+    """torch MaxPool2d(ks, stride, padding=ks//2); under a space scope the
+    rows above come from the rank above (−inf above the tile)."""
+    pad = torch_pad(ks)
+    if halo.current() is None:
+        return F.max_pool2d(x, ks, stride, pad)
+    top, bottom = halo.conv_halo(ks, stride, pad)
+    return F.max_pool2d(halo.exchange(x, top, bottom, "-inf"), ks, stride, (0, pad))
 
 
 def avg_pool_ceil(x: torch.Tensor, ks: int = 2) -> torch.Tensor:
@@ -356,7 +389,12 @@ def pixel_shuffle(x: torch.Tensor, r: int = 2) -> torch.Tensor:
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     """``jax.image.resize(method='nearest')`` over H and W: source index
-    floor((i + 0.5) · in / out), computed in float32."""
+    floor((i + 0.5) · in / out), computed in float32. Not under a space
+    scope (``ValueError``): a tile height divisible by 32·S never needs
+    it."""
+    if halo.current() is not None:
+        raise ValueError(f"a nearest resize of {tuple(x.shape[2:])} to {tuple(size)} under "
+                         "spatial partitioning: the tile height must be divisible by 32·S")
     for dim, n in ((2, size[0]), (3, size[1])):
         m = x.shape[dim]
         if m == n:
@@ -368,8 +406,13 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
 
 def replication_blur(x: torch.Tensor) -> torch.Tensor:
     """fastai's anti-checkerboard blur: ReplicationPad2d((1, 0, 1, 0)), then
-    AvgPool2d(2, stride=1). Shape-preserving."""
-    return F.avg_pool2d(F.pad(x, (1, 0, 1, 0), mode="replicate"), 2, 1)
+    AvgPool2d(2, stride=1). Shape-preserving. Under a space scope the row
+    above is the rank above's last (the tile's first row, replicated, at
+    its top)."""
+    if halo.current() is None:
+        return F.avg_pool2d(F.pad(x, (1, 0, 1, 0), mode="replicate"), 2, 1)
+    x = halo.exchange(x, 1, 0, "replicate")
+    return F.avg_pool2d(F.pad(x, (1, 0, 0, 0), mode="replicate"), 2, 1)
 
 
 class PixelShuffleICNR(nn.Module):
@@ -420,7 +463,10 @@ class SelfAttention(nn.Module):
     compute dtype; its bf16 product rounds to bf16 on the card (one
     rounding that JAX's float32 ``preferred_element_type`` skips; none in
     float32). A recompute under ``torch.utils.checkpoint`` reuses the
-    (v, u) of the training forward it repeats and writes nothing."""
+    (v, u) of the training forward it repeats and writes nothing. Under a
+    space scope the targets are the rank's own tokens and the sources
+    (f and h) every rank's, gathered: the softmax runs over the whole
+    tile."""
 
     eps = 1e-12
 
@@ -453,9 +499,9 @@ class SelfAttention(nn.Module):
         b, c, h, w = x.shape
         dt = x.dtype
         tokens = x.flatten(2).transpose(1, 2)                    # (b, hw, c)
-        f = tokens @ self._weight("query").to(dt)
+        f = halo.gather_rows(tokens @ self._weight("query").to(dt), dim=1)
         g = tokens @ self._weight("key").to(dt)
-        v = tokens @ self._weight("value").to(dt)
+        v = halo.gather_rows(tokens @ self._weight("value").to(dt), dim=1)
         s = torch.bmm(g.float(), f.float().transpose(1, 2))      # [b, j, i]
         beta = torch.softmax(s, dim=2)                           # over sources i
         o = torch.bmm(beta.to(dt), v).float()                    # [b, j, c]

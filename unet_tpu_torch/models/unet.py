@@ -20,6 +20,12 @@ block ``n − 3`` in either topology. ``remat`` recomputes every encoder
 ResBlock and every UnetBlock in the backward (``torch.utils.checkpoint``,
 non-reentrant), the blocks JAX's ``remat=True`` wraps in ``nn.remat``:
 less activation memory for one more forward of those blocks.
+
+Under a ``parallel.halo.space_scope`` the model runs on this rank's rows
+of every tile (spatial partitioning); the tile height must be divisible by
+``height_multiple(arch)``·S (32·S for the four-stage encoders), so that
+every rank keeps whole rows down to the bottleneck and no resize runs
+(``check_spatial_height``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import halo
 from .layers import (FROM_ENV, BatchNorm, Conv2d, ConvLayer, ConvTransposeUp,
                      ConvTranspose2d, PixelShuffleICNR, SelfAttention, batch_norm,
                      bn_variant_scope, env_bn_variant, parse_bn_variant, pixel_shuffle,
@@ -40,6 +47,27 @@ from .xresnet import ARCHS, XResNetBody, remat_call, stage_out_channels
 # equal to unet_tpu/models/unet.py TPU_OPT_TOPOLOGY_VERSION: bundles record
 # it, and a mismatch means the parameter shapes differ
 TPU_OPT_TOPOLOGY_VERSION = 3
+
+
+def height_multiple(arch: str) -> int:
+    """The tile-height factor every halving of ``arch`` needs: the stem,
+    the max pool and each strided stage halve the height (32 for the
+    four-stage encoders)."""
+    return 2 ** (len(ARCHS[arch][1]) + 1)
+
+
+def check_spatial_height(arch: str, height: int, spatial: int) -> None:
+    """Raise ``ValueError`` unless a tile height of ``height`` splits over
+    ``spatial`` ranks into rows that every halving of ``arch`` keeps whole
+    (divisible by ``height_multiple(arch)``·spatial). JAX's GSPMD
+    reshards uneven shards instead; the port asks for even ones."""
+    if spatial <= 1:
+        return
+    m = height_multiple(arch)
+    if height % (m * spatial):
+        raise ValueError(f"spatial={spatial} needs the tile height divisible by "
+                         f"{m}·{spatial} = {m * spatial} ({arch} halves it {m.bit_length() - 1} "
+                         f"times and every rank keeps a row), got {height}")
 
 
 class UnetBlock(nn.Module):
@@ -176,6 +204,9 @@ class DynamicUnet(nn.Module):
         self.head = Conv2d(y_c, n_out * (4 if tpu_opt else 1), 1, bias=True)
 
     def forward(self, x: torch.Tensor, fold_logits: bool = False) -> torch.Tensor:
+        scope = halo.current()
+        if scope is not None:  # x holds this rank's rows
+            check_spatial_height(self.arch, x.shape[2] * scope.size, scope.size)
         orig = x.to(self.dtype)
         feats, skips = self.encoder(orig)
         y = F.relu(self.mid_bn(feats))

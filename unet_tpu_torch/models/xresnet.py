@@ -11,12 +11,14 @@ does.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import halo
 from .layers import ConvLayer, ResBlock, depth_to_space, max_pool_torch, recompute_context
 
 # architecture name -> (expansion, blocks per stage)
@@ -46,12 +48,25 @@ def remat_call(remat: bool, block: nn.Module, *args):
     on) through non-reentrant ``torch.utils.checkpoint``: the block's
     activations are dropped after the forward and recomputed in the
     backward (its BatchNorms launch ``bn_sum_sumsq`` again there; see
-    ``layers.recompute_context``). The blocks draw no random numbers, so
-    no RNG state is kept."""
+    ``layers.recompute_context``), inside the space scope of the forward,
+    so a spatial recompute exchanges its halos again. The blocks draw no
+    random numbers, so no RNG state is kept."""
     if not (remat and torch.is_grad_enabled()):
         return block(*args)
+    scope = halo.current()
+
+    def contexts():
+        first, again = recompute_context()
+        return first, _in_scope(again, scope)
+
     return checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=recompute_context)
+                      context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _in_scope(ctx, scope):
+    with ctx, halo.space_scope(scope):
+        yield
 
 
 class XResNetBody(nn.Module):
@@ -88,10 +103,12 @@ class XResNetBody(nn.Module):
             self.block_names.append(names)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        if self.tpu_opt and (x.shape[2] % 4 or x.shape[3] % 4):
+        scope = halo.current()
+        height = x.shape[2] * (1 if scope is None else scope.size)  # the whole tile's
+        if self.tpu_opt and (height % 4 or x.shape[3] % 4):
             raise ValueError(
                 f"tpu_opt requires tile height/width divisible by 4, got "
-                f"{x.shape[2]}x{x.shape[3]}; pad the tile or set tpu_opt=False")
+                f"{height}x{x.shape[3]}; pad the tile or set tpu_opt=False")
         x = self.stem_2(self.stem_1(self.stem_0(x)))
         stem_out = depth_to_space(x, 2) if self.tpu_opt else x  # skip at /2
         x = max_pool_torch(stem_out, 3, 2)

@@ -38,6 +38,11 @@ samples; the others get scale·inv·dy. Under a process group the prefix is
 that of the global batch: rank r holds the global samples [r·n, (r+1)·n)
 of a microbatch (``parallel.mesh.shard_indices``), so its share of the
 prefix is the head of its own n samples, of length clamp(k − r·n, 0, n).
+
+Under spatial partitioning (``space`` = S > 1) the group is the world of
+D data indices × S space ranks: rank r holds rows 1/S of the samples of
+data index r // S, so the count is k·H·W summed over the S ranks' rows and
+the prefix is that of data index r // S.
 """
 
 from __future__ import annotations
@@ -195,34 +200,39 @@ KERNEL_REDUCTIONS = (bn_sum_sumsq, bn_bwd_sums)
 PLAIN_REDUCTIONS = (bn_sum_sumsq_reference, bn_bwd_sums_reference)
 
 
-def slice_rows(n_local: int, n_stat: Optional[int], group) -> Tuple[int, int]:
+def slice_rows(n_local: int, n_stat: Optional[int], group,
+               space: int = 1) -> Tuple[int, int]:
     """(k, k_local) of a training BatchNorm over ``n_local`` samples a
-    rank: k samples of the (global) batch give the statistics, the first
-    k_local of them on this rank. Without ``n_stat`` every sample does."""
-    world = dist.get_world_size(group) if group is not None else 1
+    rank (rows 1/``space`` of each): k samples of the (global) batch give
+    the statistics, the first k_local of them on this rank. Without
+    ``n_stat`` every sample does."""
+    world = (dist.get_world_size(group) if group is not None else 1) // space
     total = n_local * world
     if n_stat is None:
         return total, n_local
     k = min(max(int(n_stat), 1), total)
-    first = (dist.get_rank(group) if group is not None else 0) * n_local
+    first = (dist.get_rank(group) if group is not None else 0) // space * n_local
     return k, min(max(k - first, 0), n_local)
 
 
 class BatchNormTrain(torch.autograd.Function):
     """``(y, mean, var) = BatchNormTrain.apply(x, scale, bias, eps,
-    reductions, group, n_stat)``: training-mode BatchNorm over (N, H, W) of
-    an NCHW tensor. ``reductions`` is the pair (forward sums, backward
+    reductions, group, n_stat, space)``: training-mode BatchNorm over (N,
+    H, W) of an NCHW tensor. ``reductions`` is the pair (forward sums, backward
     sums): ``KERNEL_REDUCTIONS``, or ``PLAIN_REDUCTIONS`` to hold the
     kernels against their plain versions on the card; ``group`` is None,
     or the process group whose ranks hold equal shares of the batch;
     ``n_stat`` is None (statistics of the whole batch) or the k of the
-    slice variant; mean and var are the float32 batch statistics (biased
-    variance) for the running averages and carry no gradient."""
+    slice variant; ``space`` is the number of ranks whose rows make up
+    each sample (spatial partitioning; ``group`` then spans them); mean
+    and var are the float32 batch statistics (biased variance) for the
+    running averages and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float, reductions, group=None, n_stat=None):
-        k, k_local = slice_rows(x.shape[0], n_stat, group)
-        n = k * (x.numel() // (x.shape[0] * x.shape[1]))
+    def forward(ctx, x, scale, bias, eps: float, reductions, group=None, n_stat=None,
+                space: int = 1):
+        k, k_local = slice_rows(x.shape[0], n_stat, group, space)
+        n = k * (x.numel() // (x.shape[0] * x.shape[1])) * space
         if k_local:
             sums = reductions[0](x[:k_local])
         else:  # this rank holds no sample of the slice
@@ -260,4 +270,4 @@ class BatchNormTrain(torch.autograd.Function):
         g = head if kl == x.shape[0] else torch.cat([head, g[kl:]])
         dx = (scale * inv).view(shape) * g
         # the rank's own sums: the trainer's gradient all-reduce adds them up
-        return dx.to(x.dtype), sums[1], sums[0], None, None, None, None
+        return dx.to(x.dtype), sums[1], sums[0], None, None, None, None, None

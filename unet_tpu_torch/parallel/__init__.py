@@ -1,1 +1,2 @@
-"""Multi-process data parallelism (``mesh``)."""
+"""Multi-process data parallelism and spatial partitioning (``mesh``,
+``halo``)."""

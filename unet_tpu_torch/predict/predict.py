@@ -25,6 +25,17 @@ Each takes ``predictor=``: a resident ``Predictor`` (a bundle) or an
 ``artifact.ArtifactPredictor`` (a frozen ``.uta`` serving artifact, the
 same surface; the manifest fields they read come from its header).
 
+``spatial`` = S > 1 (JAX's ``space`` mesh axis; ``parallel/halo.py``):
+the ``Predictor`` runs in a process group of exactly S ranks
+(``parallel.mesh.launch`` starts them for the command line), one space
+group. Every rank reads and stacks the same batches; each forward takes
+this rank's rows of the whole windows (TTA flips whole windows first and
+unflips after), and the probabilities' rows are gathered to rank 0, which
+alone adds them into the mosaic (``blend_count``), finalizes and writes,
+on every tier; the other ranks run the forwards only (``_forwards_only``)
+and their forwards return None. The window or tile height must be
+divisible by 32·S, checked before any compute.
+
 Output modes: argmax class map (uint8, default), ``all_classes``
 (float32 stack), ``specific_class`` (float32 band), ``regression``
 (float32 values, nodata −9999 in a mosaic), ``large_file`` (tiles:
@@ -35,6 +46,7 @@ probabilities stretched to int8 ×31; a host mosaic: int8 sums),
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import time
 from collections import deque
 from pathlib import Path
@@ -46,7 +58,9 @@ import torch
 from ..data.augment import image_scale
 from ..geo import read_raster, tiff, write_raster
 from ..models.layers import pixel_shuffle
+from ..models.unet import check_spatial_height
 from ..ops.blend import DeviceBand, DeviceMosaic, free_device_bytes, mosaic_bytes
+from ..parallel import halo, mesh
 from ..tiling.windows import Window, generate_windows
 from ..train.checkpoint import load_bundle
 from ..utils.device import resolve_device
@@ -88,15 +102,32 @@ def make_probs_fn(model, regression: bool):
     return probs_fn
 
 
+def spatial_probs_fn(probs_fn, scope: halo.SpaceScope):
+    """``probs_fn`` on this rank's rows of whole (B,C,H,W) windows, under
+    the space scope; returns the whole windows' probabilities, every
+    rank's rows gathered, on the space group's rank 0, and None on the
+    other ranks."""
+
+    def fn(x: torch.Tensor) -> Optional[torch.Tensor]:
+        with halo.space_scope(scope):
+            local = probs_fn(halo.split_rows(x, 2, scope))
+        return halo.gather_rows_to_first(local, 2, scope)
+
+    return fn
+
+
 def tta_probs_fn(probs_fn):
     """4-fold flip test-time augmentation: the mean of the probabilities
-    over {identity, hflip, vflip, hvflip}."""
+    over {identity, hflip, vflip, hvflip} (None where ``probs_fn`` gives
+    None: a spatial rank other than 0)."""
 
-    def fn(x: torch.Tensor) -> torch.Tensor:
+    def fn(x: torch.Tensor) -> Optional[torch.Tensor]:
         acc = probs_fn(x)
         for dims in ((3,), (2,), (2, 3)):
-            acc = acc + torch.flip(probs_fn(torch.flip(x, dims)), dims)
-        return acc / 4
+            probs = probs_fn(torch.flip(x, dims))
+            if acc is not None:
+                acc = acc + torch.flip(probs, dims)
+        return None if acc is None else acc / 4
 
     return fn
 
@@ -164,6 +195,8 @@ class BatchPredictor:
 
     device: torch.device
     _forwards: Spans
+    space: Optional[halo.SpaceScope] = None  # spatial partitioning: the space group
+    primary = True  # the rank that adds, finalizes and writes
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -171,19 +204,20 @@ class BatchPredictor:
     @torch.inference_mode()
     def predict_batch_device(self, images: np.ndarray,
                              quantize_int8: bool = False,
-                             argmax_u8: bool = False) -> torch.Tensor:
+                             argmax_u8: bool = False) -> Optional[torch.Tensor]:
         """(B,H,W,C) raw tile values → device (B,n_out,H,W) probabilities
-        (or the finished forms of ``finish_probs``). Tiles cross to the
-        device in their storage dtype; the float cast and scaling run
-        there."""
+        (or the finished forms of ``finish_probs``; None on a spatial rank
+        other than 0). Tiles cross to the device in their storage dtype;
+        the float cast and scaling run there."""
         x = torch.from_numpy(np.ascontiguousarray(images))
         cuda = self.device.type == "cuda"
         # from pinned memory the copy is queued behind earlier work instead
         # of waiting for it, as a pageable copy does
         x = x.pin_memory().to(self.device, non_blocking=True) if cuda else x
         self._forwards.start()
-        out = finish_probs(self._forward(x), quantize_int8=quantize_int8,
-                           argmax_u8=argmax_u8)
+        out = self._forward(x)
+        if out is not None:
+            out = finish_probs(out, quantize_int8=quantize_int8, argmax_u8=argmax_u8)
         self._forwards.stop()
         return out
 
@@ -206,14 +240,26 @@ class Predictor(BatchPredictor):
     mosaic's adds (``blend_count`` launches on the card), the band's rows
     and its batches that span two window rows, the finalize's seconds
     (device time on the card), the host's seconds reading the scene and
-    writing the output, and the scene's seconds."""
+    writing the output, and the scene's seconds.
+
+    ``spatial`` = S > 1: this process is one of a process group of
+    exactly S ranks (``ValueError``, naming ``parallel.mesh.launch``,
+    otherwise); its device is ``cuda:{rank % cards}`` where ``device``
+    says ``cuda``."""
 
     def __init__(self, bundle: str, batch_size: int = 16, device="cuda",
                  dtype: torch.dtype = torch.bfloat16, tta: bool = False,
                  spatial: int = 1):
         self.device = resolve_device(device)
         if int(spatial) > 1:
-            raise NotImplementedError("spatial partitioning: not yet ported")
+            self.space = mesh.space_layout(spatial)
+            if mesh.data_size() != 1:
+                raise ValueError(f"Predictor(spatial={spatial}) runs in a process group of "
+                                 f"exactly {spatial} ranks, not {mesh.data_size() * spatial}")
+            self.primary = self.space.rank == 0
+            self.device = mesh.rank_device(device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
         self.tta = bool(tta)
         self.dtype = dtype
         self.model, self.manifest = load_bundle(bundle, dtype=dtype)
@@ -224,12 +270,49 @@ class Predictor(BatchPredictor):
         self.scale = image_scale(self.dtype_str, self.normalize)
         self.batch_size = batch_size
         probs_fn = make_probs_fn(self.model, self.regression)
+        if self.space is not None:
+            probs_fn = spatial_probs_fn(probs_fn, self.space)
         self.probs_fn = tta_probs_fn(probs_fn) if self.tta else probs_fn
         self._forwards = Spans(self.device)
         self.scenes: List[dict] = []
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.probs_fn(x.permute(0, 3, 1, 2).to(torch.float32) * self.scale)
+
+
+def _check_spatial(predictor: BatchPredictor, spatial: int, height: int) -> None:
+    """Before any compute: a ``spatial`` > 1 call needs a predictor made
+    with it, and windows or tiles of ``height`` rows that split into its
+    ranks' rows (``check_spatial_height``)."""
+    space = predictor.space
+    if int(spatial) > 1 and (space is None or space.size != int(spatial)):
+        raise ValueError(f"spatial={spatial} needs a Predictor made with spatial={spatial}")
+    if space is not None:
+        check_spatial_height(predictor.model.arch, height, space.size)
+
+
+def _forwards_only(predictor: BatchPredictor, batches) -> bool:
+    """On a spatial rank other than 0: run the forwards of ``batches``
+    (host batches, the same as rank 0's, which gathers their rows) and
+    return True. False, with nothing run, on rank 0 or without spatial
+    partitioning."""
+    if predictor.primary:
+        return False
+    for batch in batches:
+        predictor.predict_batch_device(batch)
+    return True
+
+
+def _read_ahead(batches: Sequence, load: Callable):
+    """``load(b)`` of each of ``batches`` in order, each read on a thread
+    ``READ_AHEAD`` batches ahead of the caller."""
+    with cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="rows") as pool:
+        reads = deque(pool.submit(load, b) for b in batches[:READ_AHEAD])
+        for k in range(len(batches)):
+            batch = reads.popleft().result()
+            if k + READ_AHEAD < len(batches):
+                reads.append(pool.submit(load, batches[k + READ_AHEAD]))
+            yield batch
 
 
 def _check_out_compress(out_compress, regression=False, all_classes=False,
@@ -326,15 +409,14 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
     ``all_classes``) once the next finalize is queued. ``read_rows(r0, r1)``
     gives scene rows as (rows, W, C); a thread calls it and stacks each
     batch ``READ_AHEAD`` batches ahead of the forward. Fills ``record``;
-    returns the output's nodata."""
+    returns the output's nodata (None on a spatial rank other than 0,
+    ``_forwards_only``)."""
     windows = generate_windows(height, width, patch, patch_overlap)
     bs = predictor.batch_size
     batches, band_rows = band_plan(windows, bs)
     record.update(windows=len(windows), batches=len(batches), band_rows=band_rows,
                   wrapping_batches=sum(b[0].y != b[-1].y for b in batches),
                   adds=sum(len({win.y for win in b}) for b in batches))
-    n_out = int(predictor.manifest.get("n_out", 2))
-    band = DeviceBand(band_rows, width, n_out, device=predictor.device)
 
     def load(chunk):
         r0 = chunk[0].y
@@ -345,6 +427,10 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
             batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), 0)])
         return batch
 
+    if _forwards_only(predictor, _read_ahead(batches, load)):
+        return None
+    n_out = int(predictor.manifest.get("n_out", 2))
+    band = DeviceBand(band_rows, width, n_out, device=predictor.device)
     finalize = Spans(predictor.device)
     pending: deque = deque()  # (host tensor, event) of finalized rows
 
@@ -356,27 +442,22 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
             emit(host.numpy())
 
     nodata = None
-    with cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="rows") as pool:
-        reads = deque(pool.submit(load, b) for b in batches[:READ_AHEAD])
-        for k, chunk in enumerate(batches):
-            batch = reads.popleft().result()
-            if k + READ_AHEAD < len(batches):
-                reads.append(pool.submit(load, batches[k + READ_AHEAD]))
-            probs = predictor.predict_batch_device(batch)[:len(chunk)]
-            start = 0
-            for end in range(1, len(chunk) + 1):
-                if end == len(chunk) or chunk[end].y != chunk[start].y:
-                    band.add_batch(probs[start:end], [chunk[start].y] * (end - start),
-                                   [win.x for win in chunk[start:end]])
-                    start = end
-            upto = batches[k + 1][0].y if k + 1 < len(batches) else height
-            if upto > band.top:
-                finalize.start()
-                out, nodata = band.finalize_rows(upto, **mode)
-                pending.append(_fetch(out))
-                finalize.stop()
-                drain(1)
-        drain(0)
+    for k, (batch, chunk) in enumerate(zip(_read_ahead(batches, load), batches)):
+        probs = predictor.predict_batch_device(batch)[:len(chunk)]
+        start = 0
+        for end in range(1, len(chunk) + 1):
+            if end == len(chunk) or chunk[end].y != chunk[start].y:
+                band.add_batch(probs[start:end], [chunk[start].y] * (end - start),
+                               [win.x for win in chunk[start:end]])
+                start = end
+        upto = batches[k + 1][0].y if k + 1 < len(batches) else height
+        if upto > band.top:
+            finalize.start()
+            out, nodata = band.finalize_rows(upto, **mode)
+            pending.append(_fetch(out))
+            finalize.stop()
+            drain(1)
+    drain(0)
     record["finalize_s"] = sum(finalize.ms()) / 1e3
     return nodata
 
@@ -386,21 +467,27 @@ def _serve_full(predictor: Predictor, hwc: np.ndarray, patch: int,
     """The whole-scene tier: windows in ``generate_windows``' order, in
     batches of ``predictor.batch_size`` (the last padded by repeating its
     final window), into one ``DeviceMosaic``, finalized on the device.
-    Returns (output, nodata) on the host."""
+    Returns (output, nodata) on the host; (None, None) on a spatial rank
+    other than 0 (``_forwards_only``)."""
     h, w = hwc.shape[:2]
     windows = generate_windows(h, w, patch, patch_overlap)
     bs = predictor.batch_size
-    n_batches = -(-len(windows) // bs)
-    record.update(windows=len(windows), batches=n_batches, adds=n_batches)
-    n_out = int(predictor.manifest.get("n_out", 2))
-    mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
-    for start in range(0, len(windows), bs):
-        chunk = windows[start:start + bs]
+    chunks = [windows[start:start + bs] for start in range(0, len(windows), bs)]
+    record.update(windows=len(windows), batches=len(chunks), adds=len(chunks))
+
+    def batch_of(chunk):
         batch = np.stack([hwc[win.indices()] for win in chunk])
         if len(chunk) < bs:
             batch = np.concatenate(
                 [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
-        probs = predictor.predict_batch_device(batch)[:len(chunk)]
+        return batch
+
+    if _forwards_only(predictor, map(batch_of, chunks)):
+        return None, None
+    n_out = int(predictor.manifest.get("n_out", 2))
+    mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
+    for chunk in chunks:
+        probs = predictor.predict_batch_device(batch_of(chunk))[:len(chunk)]
         mosaic.add_batch(probs, [win.y for win in chunk], [win.x for win in chunk])
     finalize = Spans(predictor.device)
     finalize.start()
@@ -439,16 +526,15 @@ def predict_raster_streamed(
     (``DeviceBand``, the ``blend_count`` kernel on the card) that is
     finalized there, and the finished rows stream to the output GeoTIFF
     (``tiff.StripStreamWriter``: data first, IFD at close). Returns
-    ``output_path``."""
-    if int(spatial) > 1:
-        raise NotImplementedError("spatial partitioning: not yet ported")
+    ``output_path``; under ``spatial`` rank 0 alone writes it."""
     _check_out_compress(out_compress, regression, all_classes, specific_class)
     if predictor is None:
         predictor = Predictor(predict_model, batch_size=batch_size, device=device,
-                              dtype=dtype, tta=tta)
+                              dtype=dtype, tta=tta, spatial=spatial)
     regression = predictor.regression or regression
     info = tiff.read_info(raster_path)
     patch = int(patch_size or predictor.manifest.get("patch_size", 400))
+    _check_spatial(predictor, spatial, patch)
     n_out = int(predictor.manifest.get("n_out", 2))
     if regression or all_classes:
         out_bands, out_dtype, nodata = (n_out if all_classes else 1), np.float32, -9999.0
@@ -471,10 +557,11 @@ def predict_raster_streamed(
     predictor.scenes.append(record)
     rows = WindowedRows(str(raster_path))
     try:
-        with tiff.StripStreamWriter(
+        with (tiff.StripStreamWriter(
                 str(output_path), info.height, info.width, out_bands, out_dtype,
                 transform=info.transform, crs=info.crs, nodata=nodata,
-                compress=out_compress) as writer:
+                compress=out_compress) if predictor.primary
+              else contextlib.nullcontext()) as writer:
             _serve_banded(predictor, info.height, info.width, patch, patch_overlap,
                           rows, emit, dict(regression=regression, all_classes=all_classes,
                                            specific_class=specific_class), record)
@@ -518,7 +605,8 @@ def predict_raster(
       (``ValueError`` otherwise) and returns ``(None, transform, crs)``.
 
     Returns (array, transform, crs) and writes a georeferenced GeoTIFF when
-    ``output_path`` is given."""
+    ``output_path`` is given. Under ``spatial`` the ranks pick rank 0's
+    tier, and the others return (None, transform, crs)."""
     device = resolve_device(device)
     _check_out_compress(out_compress, regression, all_classes, specific_class)
     if predictor is None:
@@ -526,6 +614,8 @@ def predict_raster(
                               device=device, dtype=dtype, tta=tta,
                               spatial=spatial)
     regression = predictor.regression or regression
+    patch = int(patch_size or predictor.manifest.get("patch_size", 400))
+    _check_spatial(predictor, spatial, patch)
 
     info0 = tiff.read_info(raster_path)
     n_out = int(predictor.manifest.get("n_out", 2))
@@ -541,7 +631,7 @@ def predict_raster(
             predict_model, raster_path, output_path, patch_size=patch_size,
             patch_overlap=patch_overlap, batch_size=batch_size,
             regression=regression, all_classes=all_classes,
-            specific_class=specific_class, class_zero=class_zero,
+            specific_class=specific_class, class_zero=class_zero, spatial=spatial,
             predictor=predictor, out_compress=out_compress)
         # not read back: the point is that the mosaic exceeds RAM; callers
         # stream it from the written file
@@ -552,7 +642,6 @@ def predict_raster(
     read_s = time.perf_counter() - t0
     hwc = np.moveaxis(scene.data, 0, 2)  # view, native dtype
     h, w = hwc.shape[:2]
-    patch = int(patch_size or predictor.manifest.get("patch_size", 400))
     mode = dict(regression=regression, all_classes=all_classes,
                 specific_class=specific_class)
     budget = device_budget_bytes
@@ -561,7 +650,10 @@ def predict_raster(
     record = {"raster": str(raster_path), "read_s": read_s}
     predictor.scenes.append(record)
     nbytes = mosaic_bytes(h, w, n_out)
-    if nbytes <= budget:
+    whole = nbytes <= budget
+    if predictor.space is not None:  # one tier for every rank: rank 0's
+        whole = mesh.broadcast_from_primary(whole, predictor.space.group)
+    if whole:
         record["tier"] = "full"
         out, nodata = _serve_full(predictor, hwc, patch, patch_overlap, mode, record)
     else:
@@ -580,6 +672,9 @@ def predict_raster(
 
         nodata = _serve_banded(predictor, h, w, patch, patch_overlap,
                                lambda r0, r1: hwc[r0:r1], emit, mode, record)
+    if not predictor.primary:
+        record["seconds"] = time.perf_counter() - t0
+        return None, scene.transform, scene.crs
     if class_zero:
         out = _apply_class_zero(out, nodata)
     t1 = time.perf_counter()
@@ -662,13 +757,13 @@ def save_predictions(
     ``predict_path`` and draws them where matplotlib, seaborn and pandas
     are installed.
 
-    Not ported yet (``NotImplementedError``): ``spatial > 1``.
+    Under ``spatial`` every rank reads the same batches; rank 0 alone
+    writes the tiles or merges the mosaic, and every rank returns the same
+    path.
     """
-    if int(spatial) > 1:
-        raise NotImplementedError("spatial partitioning: not yet ported")
     if predictor is None:
         predictor = Predictor(predict_model, batch_size=batch_size, device=device,
-                              dtype=dtype, tta=tta)
+                              dtype=dtype, tta=tta, spatial=spatial)
     if regression != predictor.regression:
         regression = predictor.regression
     # the reference gates large_file int8 stretching on TRUTHY specific_class
@@ -680,7 +775,8 @@ def save_predictions(
     path = Path(predict_path)
     model_name = Path(predict_model).stem
     output_folder = path.parent if merge else path.parent / ("predicted_tiles_" + model_name)
-    output_folder.mkdir(parents=True, exist_ok=True)
+    out_file = output_folder / ("_".join(filter(None, [AOI, year, model_name, "prediction"]))
+                                + ".tif")
 
     tiles = sorted(path.glob("*.tif"))
     if not tiles:
@@ -694,19 +790,9 @@ def save_predictions(
         by_shape.setdefault((info.height, info.width), []).append(t)
     if len(by_shape) > 1:
         print(f"{len(by_shape)} distinct tile sizes; predicting group-wise")
+    for height, _ in by_shape:
+        _check_spatial(predictor, spatial, height)
     tiles = [t for group in by_shape.values() for t in group]
-
-    accumulator: Optional[MosaicAccumulator] = None
-    device_mosaic: Optional[DeviceMosaic] = None
-    if merge:
-        infos = [tile_extent_info(str(t)) for t in tiles]
-        if device_merge:
-            tile_rows, tile_cols, y_len, x_len, mosaic_transform = grid_layout(infos)
-            device_mosaic = DeviceMosaic(y_len, x_len, int(predictor.manifest.get("n_out", 2)),
-                                         device=predictor.device)
-            mosaic_crs = infos[0].crs
-        else:
-            accumulator = MosaicAccumulator(infos, large_file=large_file)
 
     bs = predictor.batch_size
     # batch within shape groups only (a batch never straddles two groups)
@@ -724,6 +810,22 @@ def save_predictions(
         if len(chunk) < bs:  # pad the group's last batch
             batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)])
         return start, chunk, rasters, batch
+
+    if _forwards_only(predictor, (load_batch(start)[3] for start in batch_ends)):
+        return out_file if merge else output_folder
+
+    output_folder.mkdir(parents=True, exist_ok=True)
+    accumulator: Optional[MosaicAccumulator] = None
+    device_mosaic: Optional[DeviceMosaic] = None
+    if merge:
+        infos = [tile_extent_info(str(t)) for t in tiles]
+        if device_merge:
+            tile_rows, tile_cols, y_len, x_len, mosaic_transform = grid_layout(infos)
+            device_mosaic = DeviceMosaic(y_len, x_len, int(predictor.manifest.get("n_out", 2)),
+                                         device=predictor.device)
+            mosaic_crs = infos[0].crs
+        else:
+            accumulator = MosaicAccumulator(infos, large_file=large_file)
 
     def process(chunk, rasters, host, event):
         """Host side of one batch: per-tile select / quantize / write."""
@@ -826,8 +928,6 @@ def save_predictions(
         crs = accumulator.crs
     if class_zero:
         mosaic = _apply_class_zero(mosaic, nodata)
-    name = "_".join(filter(None, [AOI, year, model_name, "prediction"])) + ".tif"
-    out_file = output_folder / name
     write_raster(out_file, mosaic, transform=transform, crs=crs, nodata=nodata,
                  compress=out_compress)
     print(f"Prediction stored in {output_folder}.")

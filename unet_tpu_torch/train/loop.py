@@ -57,9 +57,18 @@ is built, as the JAX trainer does), with or without self-attention:
   statistics and the loss denominators are the global batch's, the
   gradients and the loss are summed over the ranks once a step (after the
   last microbatch), validation's sums are reduced, and only rank 0 prints
-  rows and writes the bundle, the checkpoints and the summary.
-
-``spatial`` > 1 is not ported yet and raises.
+  rows and writes the bundle, the checkpoints and the summary;
+* spatial partitioning (``spatial`` = S > 1, JAX's ``space`` mesh axis;
+  ``parallel/mesh.py``, ``parallel/halo.py``): the world splits into
+  groups of S adjacent ranks, each group one data index. Its ranks decode
+  the data index's whole tiles, augment them whole with the same draws
+  (rot90, one ``flip_scale`` launch, the photometric passes: flips move
+  rows across the shards), then keep their rows of images and masks; the
+  model runs on those rows under the group's space scope, the BatchNorm
+  statistics, the loss denominators, the gradients and validation's sums
+  are reduced over the world. The tile height must be divisible by
+  32·S (``models.unet.check_spatial_height``), checked before any
+  compute.
 """
 
 from __future__ import annotations
@@ -80,7 +89,8 @@ from ..data import (NOOP_AUGMENT, AugmentConfig, TileDataset, TileLoader,
                     resolve_class_weights)
 from ..models import TPU_OPT_TOPOLOGY_VERSION, build_unet, init_weights
 from ..models.layers import FROM_ENV, env_differs, parse_bn_variant, sync_batch_norm
-from ..parallel import mesh
+from ..models.unet import check_spatial_height
+from ..parallel import halo, mesh
 from ..utils.plots import (missing_modules, plot_lr_find, plot_training_overview,
                            visualize_data, visualize_data_path)
 from ..utils.profiling import StepTimer, device_trace
@@ -131,7 +141,9 @@ class TrainerConfig:
     loader_threads: int = 8
     checkpoint_every: int = 0  # epochs; 0 = off
     resume: bool = False
-    spatial: int = 1  # not yet ported beyond 1: raises
+    # shard tile height over groups of this many ranks (a process group
+    # of a multiple of it: mesh.launch, or api.main / run with spatial)
+    spatial: int = 1
     # sequential microbatches a step: BatchNorm uses each microbatch's
     # statistics, the gradients average; batch_size must divide evenly
     grad_accum: int = 1
@@ -163,14 +175,15 @@ LR_FIND_WINDOW = 10  # sweep losses fetched this many at a time, not a host sync
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig):
-        if cfg.spatial > 1:
-            raise NotImplementedError("spatial > 1 is not yet ported; set spatial to 1")
         if cfg.grad_accum > 1 and cfg.batch_size % cfg.grad_accum:
             raise ValueError(f"batch_size {cfg.batch_size} must divide into "
                              f"grad_accum={cfg.grad_accum} microbatches")
-        # data parallelism: each rank holds its share of every (micro)batch
-        self.world, self.rank, self.group = mesh.data_size(), mesh.rank(), mesh.data_group()
-        self.primary = self.rank == 0
+        # spatial partitioning: this rank's space group (None without)
+        self.space = mesh.space_layout(cfg.spatial)
+        # data parallelism: each data index holds its share of every
+        # (micro)batch; the reductions span the world
+        self.world, self.rank, self.group = mesh.data_size(), mesh.data_index(), mesh.data_group()
+        self.primary = mesh.is_primary()
         accum = max(1, cfg.grad_accum)
         self.train_shard = mesh.shard_indices(cfg.batch_size, accum, self.world, self.rank)
         self.valid_shard = mesh.shard_indices(cfg.batch_size, 1, self.world, self.rank)
@@ -227,6 +240,7 @@ class Trainer:
                        "(tpu_opt=False). Pad tiles to a multiple of 4 to use the "
                        "TPU-optimized decoder.")
             cfg = self.cfg = replace(cfg, tpu_opt=False)
+        check_spatial_height(cfg.arch, self.tile_hw[0], cfg.spatial)
         self.model = build_unet(cfg.arch, n_out=self.n_out, c_in=self.c_in,
                                 self_attention=cfg.self_attention, tpu_opt=cfg.tpu_opt,
                                 dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
@@ -238,7 +252,7 @@ class Trainer:
         weight = None if cfg.regression else torch.tensor(
             self.class_weights, dtype=torch.float32, device=self.device)
         self.loss_fn = build_loss(cfg.loss_func, weight, regression=cfg.regression,
-                                  group=self.group)
+                                  group=self.group, space=self.space)
         self.monitor, self.comp = _monitor_defaults(cfg.monitor, cfg.regression)
         self.aug_cfg = cfg.aug if cfg.transforms else NOOP_AUGMENT
         self.steps_per_epoch = len(self.train_loader)
@@ -308,17 +322,22 @@ class Trainer:
 
     def augment(self, images: torch.Tensor, masks: Optional[torch.Tensor],
                 split: str, generator: torch.Generator, **kwargs):
-        """Scale and augment a device batch (this rank's share of it under
-        data parallelism: the draws are made for the whole batch)."""
+        """Scale and augment a device batch (this data index's share of it
+        under data parallelism: the draws are made for the whole batch);
+        under spatial partitioning this rank's rows of the result."""
         cfg = self.cfg
         if self.world > 1:
             kwargs.update(batch_size=cfg.batch_size,
                           shard=self.train_shard if split == "train" else self.valid_shard)
-        return augment_batch(images, masks, self.aug_cfg, generator,
+        x, y = augment_batch(images, masks, self.aug_cfg, generator,
                              n_transform_imgs=cfg.n_transform_imgs,
                              dtype_str=self.dtype_str, normalize=cfg.normalize,
                              split=split, split_idx=cfg.split_idx,
                              reference_quirks=cfg.reference_quirks, **kwargs)
+        if self.space is None:
+            return x, y
+        return (halo.split_rows(x, 2, self.space),
+                None if y is None else halo.split_rows(y, 1, self.space))
 
     def _preds(self, logits: torch.Tensor) -> torch.Tensor:
         """What the loss takes: the logits, or for regression channel 0."""
@@ -331,7 +350,8 @@ class Trainer:
         parity), and its backward into the parameters' ``.grad``: per
         microbatch under ``grad_accum``, the gradients summed and divided
         by their count. Under a process group ``images`` and ``masks`` are
-        this rank's share of the batch; the gradients and the loss are then
+        this rank's share of the batch (its rows of it under spatial
+        partitioning); the gradients and the loss are then
         summed over the ranks once, after the last microbatch. Returns the
         mean loss (the global batch's)."""
         self.model.train()
@@ -341,11 +361,12 @@ class Trainer:
         accum = max(1, self.cfg.grad_accum)
         losses = []
         for x, y in zip(images.chunk(accum), masks.chunk(accum)):
-            logits = self.model(x, fold_logits=True)
-            if logits.shape[-1] != y.shape[-1]:
-                logits, y = fold_loss_layout(logits, y)
-            loss = self.loss_fn(self._preds(logits), y)
-            loss.backward()
+            with halo.space_scope(self.space):
+                logits = self.model(x, fold_logits=True)
+                if logits.shape[-1] != y.shape[-1]:
+                    logits, y = fold_loss_layout(logits, y)
+                loss = self.loss_fn(self._preds(logits), y)
+                loss.backward()
             losses.append(loss.detach())
         loss = losses[0]
         if accum > 1:
@@ -415,13 +436,17 @@ class Trainer:
         for images, masks, n_valid in self.valid_loader:
             x, y = self.augment(*self.to_device(images, masks), "valid", generator)
             sample_mask = torch.arange(x.shape[0], device=self.device) < n_valid
-            preds = self._preds(self.model(x))
+            with halo.space_scope(self.space):
+                preds = self._preds(self.model(x))
             losses.append(self.loss_fn(preds, y, sample_mask=sample_mask))
             state = (M.regression_update if regression else M.dice_multi_update)(
                 state, preds, y, sample_mask)
             counts.append(n_valid)
         values = torch.stack(losses)
-        if self.group is not None:  # the ranks' shares: sum losses, counts, metric sums
+        if self.group is not None:
+            # the ranks' shares: sum losses, counts, metric sums (the S
+            # space ranks of a data index count its samples S times, which
+            # the loss's weighted mean divides out)
             n_b = len(counts)
             flat = torch.cat([values, torch.tensor(counts, dtype=torch.float32,
                                                    device=self.device)]

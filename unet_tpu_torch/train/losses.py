@@ -25,6 +25,13 @@ the ranks' losses add up to the global batch's loss and their summed
 gradients to its gradient, as GSPMD computes them in JAX. The dice loss is
 a sum of per-sample terms and needs no denominator.
 
+Under spatial partitioning (``space``, the ``halo.SpaceScope`` of the
+rank's space group) each rank holds rows of its samples: the pixel sums
+above already span them through ``group`` (the world), and the dice loss
+sums each (sample, class) intersection and union over the space group
+before the ratio; each of the S ranks then returns 1/S of its data
+index's loss, so the ranks' losses still add up to the global batch's.
+
 ``fold_loss_layout`` lays out the sub-pixel head's pre-shuffle logits and
 the full-resolution targets so the loss computes the full-resolution value
 without a pixel shuffle.
@@ -37,6 +44,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..parallel import halo
 from ..parallel.mesh import all_reduce_sum
 
 CROSS_ENTROPY_NAMES = ("cross_entropy", "crossentropylossflat", "ce")
@@ -128,10 +136,12 @@ def smooth_l1_loss(preds: torch.Tensor, targets: torch.Tensor, beta: float = 0.5
 
 
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1e-6,
-              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sample_mask: Optional[torch.Tensor] = None,
+              space: Optional[halo.SpaceScope] = None) -> torch.Tensor:
     """fastai DiceLoss (``reduction='sum'``): softmax probabilities over the
     class axis 1, per-(sample, class) dice over every other axis, ``1 −
-    dice`` summed; ``sample_mask`` (B,) zeroes padded samples' terms."""
+    dice`` summed; ``sample_mask`` (B,) zeroes padded samples' terms.
+    ``space``: the rank holds rows of its samples (see the module)."""
     c = logits.shape[1]
     probs = torch.softmax(logits.float(), dim=1)
     classes = torch.arange(c, device=logits.device).view(1, c, *([1] * (targets.dim() - 1)))
@@ -139,10 +149,12 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor, smooth: float = 1e-6,
     dims = tuple(range(2, probs.dim()))
     inter = (probs * onehot).sum(dim=dims)
     union = (probs + onehot).sum(dim=dims)
+    if space is not None:
+        inter, union = halo.all_reduce(torch.stack([inter, union]), space)
     loss = 1.0 - (2.0 * inter + smooth) / (union + smooth)
     if sample_mask is not None:
         loss = loss * sample_mask.float()[:, None]
-    return loss.sum()
+    return loss.sum() if space is None else loss.sum() / space.size
 
 
 FOCAL_NAMES = ("focal", "focallossflat")
@@ -154,12 +166,14 @@ LOSSES = {"mse": (mse_loss, ("mse", "mselossflat")),
 
 
 def build_loss(name: Optional[str], weight: Optional[torch.Tensor] = None,
-               regression: bool = False, group=None) -> Callable[..., torch.Tensor]:
+               regression: bool = False, group=None,
+               space: Optional[halo.SpaceScope] = None) -> Callable[..., torch.Tensor]:
     """The loss by name, with the reference's defaults: None → MSE for
     regression, weighted cross-entropy otherwise; focal → weighted focal
     loss with γ = 2; mse, l1, smooth_l1 and dice (and their fastai class
     names) unweighted. ``group``: the process group whose ranks share the
-    batch (None for one process)."""
+    batch (None for one process); ``space``: the rank's space group under
+    spatial partitioning (None without)."""
     if name is None:
         name = "mse" if regression else "cross_entropy"
     key = name.lower()
@@ -171,6 +185,8 @@ def build_loss(name: Optional[str], weight: Optional[torch.Tensor] = None,
                                                           sample_mask, group)
     for fn, names in LOSSES.values():
         if key in names:
-            return fn if group is None or fn is dice_loss else functools.partial(fn, group=group)
+            if fn is dice_loss:
+                return fn if space is None else functools.partial(fn, space=space)
+            return fn if group is None else functools.partial(fn, group=group)
     raise ValueError(f"Unknown loss {name!r}; options: "
                      f"{sorted(['cross_entropy', 'focal', *LOSSES])}")
