@@ -226,6 +226,14 @@ Phases (any failure raises and the script exits nonzero), in this order:
      two-rank spawn run alone on the card; the four ranks at spatial 4,
      which read peak memory only, run beside 9c's quality gate (which
      times nothing);
+  13. ``python -m unet_tpu_torch bench --tile 256 --batch-size 4 --steps
+     4`` through the CLI, each section in a child process of its own (aim:
+     150 s): exit 0, the headline JSON first and last on stdout, the seven
+     section lines and the detail on stderr with no error, 43 / 43 / 1
+     launches a step in both train sections, the float artifact's maps
+     equal to the bundle's, blend_count in the streamed scene, the five
+     kernels in its kernels section; each kernel's figures there go into
+     the kernels' JSON line under ``bench``;
   10. last, as the profiler slows later launches: the device time of every
      kernel, its plain version and its library call at the shapes above
      (the union of the traced device intervals, host overhead left out;
@@ -270,18 +278,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from unet_tpu_torch.utils.timing import (BN_SITES, HBM_BYTES_PER_S, blend_bound_ms, bn_work,
+                                         bound, cuda_ms, device_busy_s, device_trace,
+                                         flip_work, library_index_add_fn, offset_copy_work)
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 SCENE = 4096
 PATCH = 512
 BATCH = 16
 N_OUT = 3
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-# (C, H = W, count) of the 43 training BatchNorms of the xresnet34 tpu_opt
-# U-Net at 512² tiles; each runs at batch 16
-BN_SITES = [(64, 128, 7), (64, 256, 1), (128, 64, 10), (128, 128, 2),
-            (256, 32, 14), (256, 128, 1), (512, 16, 8)]
+# BN_SITES (utils/timing.py): (C, H = W, count) of the 43 training
+# BatchNorms of the xresnet34 tpu_opt U-Net at 512² tiles, at batch 16;
 # the same for the parity topology (three-conv stem at 32/32/64 channels)
 BN_SITES_PARITY = [(32, 256, 2), (64, 256, 2), (64, 128, 7), (128, 64, 10),
                    (256, 32, 14), (512, 16, 8)]
@@ -333,21 +341,6 @@ GATE_RUNS = [("parity", 0, 14, False, True), ("tpu_opt", 0, 20, False, True),
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events),
-    after one warm run."""
-    fn()
-    times = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
 
 
 def host_ms(fn, reps: int = 50) -> float:
@@ -540,37 +533,6 @@ def serve_inprocess(bundle: Path, scene: Path, out: Path) -> None:
                    predictor=pred, device=pred.device)
 
 
-def blend_bound_ms(n, c, th, tw, rows, cols) -> tuple:
-    """(bound_ms, bound_by): each tile read once, the covered mosaic and
-    count read and written once; one add per tile element and count."""
-    h = int(max(rows)) + th
-    w = int(max(cols)) + tw
-    cover = np.zeros((h, w), bool)
-    for r, q in zip(rows, cols):
-        cover[r:r + th, q:q + tw] = True
-    covered = int(cover.sum())
-    nbytes = n * c * th * tw * 4 + 2 * covered * (c + 1) * 4
-    ops = n * (c + 1) * th * tw
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def device_busy_s(prof, since: float = float("-inf")) -> tuple:
-    """(busy seconds, device events) of a ``torch.profiler`` trace: the
-    union of the intervals in which the card ran a kernel, copy or set,
-    counting only events that start at ``since`` (µs, the trace's clock)
-    or later."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.start >= since)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy / 1e6, len(spans)
-
-
 def top_kernels(prof, n: int = 15) -> list:
     """(name, device ms, count) of the ``n`` device activities of a
     ``torch.profiler`` trace with the largest summed time."""
@@ -580,61 +542,6 @@ def top_kernels(prof, n: int = 15) -> list:
             ms, k = tot.get(e.name, (0.0, 0))
             tot[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, k + 1)
     return sorted(((k, ms, c) for k, (ms, c) in tot.items()), key=lambda t: -t[1])[:n]
-
-
-def library_index_add_fn(mosaic, count, tiles, rows, cols):
-    """One ``index_add_`` computing the same sums and counts (atomics, so
-    not bit-stable) — a yardstick only; the port never calls it."""
-    c, h, w = mosaic.shape
-    n, _, th, tw = tiles.shape
-    dev = mosaic.device
-    buf = torch.cat([mosaic, count[None]]).reshape(-1)
-    src = torch.cat([tiles, torch.ones((n, 1, th, tw), device=dev)], 1).reshape(-1)
-    ch = torch.arange(c + 1, device=dev).view(1, -1, 1, 1) * (h * w)
-    yy = torch.arange(th, device=dev).view(1, 1, -1, 1)
-    xx = torch.arange(tw, device=dev).view(1, 1, 1, -1)
-    r = torch.as_tensor(np.asarray(rows), device=dev).view(-1, 1, 1, 1)
-    q = torch.as_tensor(np.asarray(cols), device=dev).view(-1, 1, 1, 1)
-    idx = (ch + (r + yy) * w + (q + xx)).reshape(-1)
-    return lambda: buf.index_add_(0, idx, src)
-
-
-def device_trace(fn, what: str, reps: int = 20, tries: int = 5) -> dict:
-    """torch.profiler over ``reps`` calls of ``fn()``, after one warm call:
-    ``{"ms": the union of the card's kernels, copies and sets per call
-    (host overhead between launches left out), "ops": device operations
-    per call, "by_name": {device event name: mean ms}}``.
-
-    Each call launches at least one kernel, so a trace with fewer than
-    ``reps`` device events is incomplete: among dozens of short profiler
-    runs in a row, CUPTI now and then delivers none. Such a run is made
-    again, up to ``tries`` times in all. Device events that start more
-    than 1 ms before the run's first host event (a late delivery from an
-    earlier run) are not counted."""
-    fn()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        host0 = min((e.time_range.start for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CPU), default=0.0)
-        busy_s, n_dev = device_busy_s(prof, since=host0 - 1e3)
-        if n_dev >= reps:
-            by_name: dict = {}
-            for e in prof.events():
-                if (e.device_type == torch.autograd.DeviceType.CUDA
-                        and e.time_range.start >= host0 - 1e3):
-                    by_name.setdefault(e.name, []).append(
-                        (e.time_range.end - e.time_range.start) / 1e3)
-            return {"ms": busy_s * 1e3 / reps, "ops": n_dev / reps,
-                    "by_name": {k: float(np.mean(v)) for k, v in by_name.items()}}
-        log(f"torch.profiler traced {n_dev} device events for {reps} calls of {what}; "
-            "tracing again")
-    raise RuntimeError(f"torch.profiler lost the trace of {reps} calls of {what} "
-                       f"{tries} times")
 
 
 def device_times(late: list) -> dict:
@@ -648,7 +555,7 @@ def device_times(late: list) -> dict:
     for case in late:
         tot = out.setdefault(case["kernel"], {"ms": 0.0, "plain_ms": 0.0, "library_ms": None})
         for key, fn in case["fns"].items():
-            tr = device_trace(fn, f"{case['kernel']} {key} {case.get('what', '')}")
+            tr = device_trace(fn, f"{case['kernel']} {key} {case.get('what', '')}", reps=10)
             tot[key] = (tot[key] or 0.0) + case["count"] * tr["ms"]
             if key == "ms" and "parity_count" in case:
                 tot["parity_ms"] = tot.get("parity_ms", 0.0) + case["parity_count"] * tr["ms"]
@@ -765,8 +672,8 @@ def bn_phase(dev, late: list) -> dict:
         t = {"fwd_ms": cuda_ms(fwd["ms"]), "fwd_plain_ms": cuda_ms(fwd["plain_ms"]),
              "fwd_lib_ms": cuda_ms(fwd["library_ms"]), "bwd_ms": cuda_ms(bwd["ms"]),
              "bwd_plain_ms": cuda_ms(bwd["plain_ms"]), "bwd_lib_ms": cuda_ms(bwd["library_ms"]),
-             "fwd_bound_ms": n_el * x.element_size() / HBM_BYTES_PER_S * 1e3,
-             "bwd_bound_ms": 2 * n_el * x.element_size() / HBM_BYTES_PER_S * 1e3}
+             "fwd_bound_ms": bound(*bn_work(shape, x.element_size(), False))[0],
+             "bwd_bound_ms": bound(*bn_work(shape, x.element_size(), True))[0]}
         for k, v in t.items():
             step[k] += count * v
             pstep[k] += pcount * v
@@ -838,10 +745,8 @@ def flip_phase(dev, late: list) -> dict:
             raise AssertionError(f"flip_scale differs from its plain version at "
                                  f"{shapes[k]}: max {(ki - pi).abs().max().item()}")
         err = max(err, float((ki - pi).abs().max()), float((km.long() - pm.long()).abs().max()))
-    img, msk = args["main"][:2]
-    nbytes = img.numel() * (1 + 4) + msk.numel() * 2
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = img.numel() / F32_OPS_PER_S
+    nbytes, ops = flip_work(*shapes["main"])
+    bound_ms, bound_by = bound(nbytes, ops)
     fns = {"ms": lambda: fused_flip_scale(*args["main"]),
            "plain_ms": lambda: fused_flip_scale_reference(*args["main"])}
     late.append({"kernel": "flip_scale", "count": 1, "fns": fns, "symbol": "flip_scale_kernel",
@@ -850,8 +755,8 @@ def flip_phase(dev, late: list) -> dict:
                  "fns": {"ms": lambda: fused_flip_scale(*args["ragged"])},
                  "what": f"flip_scale {shapes['ragged']}"})
     out = {"ms": cuda_ms(fns["ms"]), "plain_ms": cuda_ms(fns["plain_ms"]),
-           "host_ms": host_ms(fns["ms"]), "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "err": err}
+           "host_ms": host_ms(fns["ms"]), "bound_ms": bound_ms, "bound_by": bound_by,
+           "err": err}
     print(f"flip_scale {BATCH}x3x{PATCH}² uint8 + uint8 masks and {FLIP_RAGGED}: bit-equal; "
           f"CUDA events per call: kernel {out['ms'] * 1e3:.1f} us, plain "
           f"{out['plain_ms'] * 1e3:.1f} us; the wrapper holds the host "
@@ -1076,7 +981,7 @@ def offset_copy_phase(dev, late: list) -> dict:
                  "what": f"offset_copy (16, {COLS}) offset 1"})
     out = {k: cuda_ms(fn) for k, fn in fns.items()}
     out["empty_ms"] = cuda_ms(lambda: empty_kernel(dev))
-    out["bound_ms"] = 2 * ROWS * COLS * 4 / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = bound(*offset_copy_work(ROWS, COLS))[0]
     out["err"] = err
     print(f"offset_copy: bit-equal at every offset of (64, {COLS}) and at the probe's "
           f"(16, {COLS}) offset 1, out-of-range offsets refused; CUDA events per call: "
@@ -3804,6 +3709,91 @@ def spatial_phase(tmp: Path, bundle: Path, live_cli: dict, one_step: dict,
             "peak_bytes": {n: [m["peak_bytes"] for m in mem[n]] for n in SPATIAL_MEM}}
 
 
+BENCH_ARGS = ("--tile", 256, "--batch-size", 4, "--steps", 4)  # phase 13's bench
+BENCH_SECTIONS = ["train_parity_topology", "predict", "serving", "loader", "e2e_train",
+                  "scaling", "kernels"]  # the stderr section lines, in JAX's order
+BENCH_TARGET_S = 150  # phase 13's aim, printed beside its seconds
+
+
+def bench_phase() -> dict:
+    """13. ``python -m unet_tpu_torch bench`` at ``BENCH_ARGS`` through the
+    CLI (each section in a child process of its own): exit 0; the headline
+    JSON first and last on stdout; on stderr the seven section lines in
+    JAX's order and the detail line, none with an error; both train
+    sections 43 bn_sum_sumsq, 43 bn_bwd_sums and 1 flip_scale launches a
+    step; the float artifact's class maps equal to the bundle's; blend_count
+    launched by the streamed scene; the five kernels in the kernels
+    section, each launched there. Returns the phase's seconds, the headline
+    and each kernel's ``bench`` entry for the kernels' JSON line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "unet_tpu_torch", "bench",
+                           *map(str, BENCH_ARGS)], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600, env={**os.environ, "UNET_TPU_TRACEBACK": "1"})
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout + proc.stderr)
+        raise RuntimeError(f"bench exited {proc.returncode}")
+    out = proc.stdout.strip().splitlines()
+    head = json.loads(out[0])
+    if head.get("metric") != "train_tiles_per_sec_per_chip_512" or json.loads(out[-1]) != head:
+        raise AssertionError(f"bench's headline is not its first and last line: {out}")
+    lines = [json.loads(line) for line in proc.stderr.strip().splitlines()
+             if line.startswith("{")]
+    if [d.get("section") for d in lines[:-1]] != BENCH_SECTIONS or "train" not in lines[-1]:
+        raise AssertionError(f"bench's stderr lines: {[d.get('section') for d in lines]}")
+    detail = lines[-1]
+    failed = [k for k, v in detail.items() if isinstance(v, dict) and "error" in v]
+    if failed:
+        raise AssertionError(f"bench sections failed: {failed}")
+    want = {"bn_sum_sumsq": 43, "bn_bwd_sums": 43, "flip_scale": 1}
+    for sec in ("train", "train_parity_topology"):
+        if detail[sec]["launches_per_step"] != want:
+            raise AssertionError(f"bench {sec} launches a step "
+                                 f"{detail[sec]['launches_per_step']}, expected {want}")
+    serving, kern = detail["serving"], detail["kernels"]
+    if serving["artifact_matches_live"] is not True:
+        raise AssertionError("bench serving: the float artifact's maps differ from the bundle's")
+    if serving["launches"]["blend_count"] <= 0:
+        raise AssertionError("bench serving: the streamed scene launched no blend_count")
+    if set(kern["kernels"]) != set(LATE_UNIT) or min(kern["launches"].values()) <= 0:
+        raise AssertionError(f"bench kernels: {sorted(kern['kernels'])}, launches "
+                             f"{kern['launches']}")
+    print(f"bench {' '.join(map(str, BENCH_ARGS))}: exit 0 in {secs:.1f} s (aim "
+          f"{BENCH_TARGET_S} s); headline {head['value']} tiles/s/chip; step "
+          f"{detail['train']['step_ms']} ms (parity {detail['train_parity_topology']['step_ms']})"
+          f"; predict {detail['predict']['megapixels_per_sec']} Mpix/s; serve live "
+          f"{serving['live_mpix_s']}, artifact {serving['artifact_mpix_s']}, int8 "
+          f"{serving['artifact_int8_mpix_s']} Mpix/s; e2e "
+          f"{detail['e2e_train']['e2e_tiles_per_sec']} tiles/s")
+    print("bench section seconds (child process included): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in detail["section_seconds"].items()))
+    for name in ("live", "artifact", "artifact_int8"):
+        h, c, f = (serving[k][name]["median"] for k in (
+            "host_ms_per_batch", "copy_host_ms_per_batch", "forward_ms"))
+        print(f"bench serving {name}: host {h:.2f} ms a predict_batch_device call, pinned "
+              f"copy {c:.2f} ms, forward {f:.2f} ms on the card (medians)")
+    entries = {}
+    for name, row in kern["kernels"].items():
+        entries[name] = {
+            "per": row["per"], "ms": row["ms"], "call_ms": row["call_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "share_of_bound": row["share_of_bound"], "max_abs_err": row["max_abs_err"],
+            "launches": {"kernels": kern["launches"][name],
+                         "train_step": detail["train"]["launches_per_step"].get(name),
+                         "serving": serving["launches"][name],
+                         "e2e_train": detail["e2e_train"]["launches"][name]}}
+        lib = row["library_ms"]
+        print(f"bench kernels {name} ({row['per']}): device {row['ms']['median'] * 1e3:.2f} us "
+              f"[{row['ms']['min'] * 1e3:.2f}, {row['ms']['max'] * 1e3:.2f}], plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, library "
+              + (f"{lib * 1e3:.2f} us" if lib is not None else "none")
+              + f", bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+              f"{100 * row['share_of_bound']:.0f}% of its speed; max |kernel - plain| "
+              f"{row['max_abs_err']:.3g} ({row['bar']})")
+    return {"seconds": secs, "headline": head, "entries": entries}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4100,6 +4090,11 @@ def main() -> int:
         # 2 (CLI and in process), a spatial train step, per-rank memory
         sp12 = spatial_phase(tmp, bundle, stats, ddp.pop("one_fp32"), mem_procs)
 
+        log(f"-- phase 13 at {time.perf_counter() - t_start:.1f} s")
+        # 13. python -m unet_tpu_torch bench at a small size through the CLI
+        torch.cuda.empty_cache()
+        bench13 = bench_phase()
+
         log(f"-- phase 10 at {time.perf_counter() - t_start:.1f} s")
         # 10. under torch.profiler, after every kernel timing (the profiler
         # slows later launches): each kernel's device time, then the card's
@@ -4317,7 +4312,8 @@ def main() -> int:
          "bound_by": b_by, "call_ms": call_ms, **extra, "parity": parity[kname],
          "pipeline": pipeline[kname], "any_size": any_size[kname],
          "train_surface": train_surface[kname], "run_resume_ddp": run_resume_ddp[kname],
-         "artifact_variants": artifact_variants[kname], "spatial": spatial[kname]}
+         "artifact_variants": artifact_variants[kname], "spatial": spatial[kname],
+         "bench": bench13["entries"][kname]}
         for kname, src, replaces, n, err, call_ms, b_ms, b_by, extra in rows]}
     print("quality gate on the card: " + "; ".join(
         f"{r['topology']} s{r['seed']} {'bf16' if r['bf16'] else 'fp32'} dice "

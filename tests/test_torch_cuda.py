@@ -970,3 +970,30 @@ def test_spatial_forward_over_two_ranks_matches_unsharded(dev, tmp_path):
         assert float((got - want).norm()) <= 1e-2 * float(want.norm())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_bench_kernels_section(dev):
+    """``bench``'s kernels section at small shapes, in a child process as
+    ``bench`` runs it (the profiler sessions of earlier tests in this
+    process can leave later traces short of device events): each of the
+    five kernels against its plain version within ``capability_check``'s
+    bars (the section raises otherwise), timed, bounded and launched."""
+    from unet_tpu_torch import bench
+
+    res = bench._bench_section("bench_kernels", dict(tile=64, batch_size=2, device="cuda"),
+                               600)
+    assert "error" not in res, res
+    rows = res["kernels"]
+    assert set(rows) == {"bn_sum_sumsq", "bn_bwd_sums", "flip_scale", "blend_count",
+                         "offset_copy"}
+    for name, row in rows.items():
+        if row["bar"] == "bit-equal":
+            assert row["max_abs_err"] == 0.0, name
+        else:
+            assert 0 <= row["max_abs_err"] < 1e-1, (name, row["max_abs_err"])
+        for key in ("ms", "call_ms"):
+            assert 0 < row[key]["min"] <= row[key]["median"] <= row[key]["max"], (name, key)
+        assert row["plain_ms"] > 0, name
+        assert (row["library_ms"] is None) == (name == "flip_scale")
+        assert row["bound_ms"] > 0 and row["bound_by"] in ("bytes", "operations")
+        assert res["launches"][name] > 0, name

@@ -11,8 +11,9 @@ fastai-trained models (``import-model``) and checks a machine
 (``doctor``), with hand-written CUDA kernels under ``ops/csrc/`` and the
 native tile decoder under ``native/``. ``run`` (``api.py``) drives the
 reference's stages from a ``Params`` file, training resumes from its step
-checkpoints, and ``parallel/mesh.py`` trains data-parallel over
-processes.
+checkpoints, ``parallel/mesh.py`` trains data-parallel over processes,
+and ``bench`` (``bench.py``) measures the port with the JAX benchmark's
+sections.
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and never
 fall back to the CPU unasked.

@@ -1,4 +1,4 @@
-"""CLI front-end: ``python -m unet_tpu_torch <run|tile|train|predict|serve|export|import-weights|import-model|doctor> ...``.
+"""CLI front-end: ``python -m unet_tpu_torch <run|tile|train|predict|serve|export|import-weights|import-model|doctor|bench> ...``.
 
     python -m unet_tpu_torch run config.json [--multi] [--device cpu]
     python -m unet_tpu_torch tile scene.tif --mask mask.tif --base-dir tiles
@@ -9,6 +9,7 @@
     python -m unet_tpu_torch import-weights xresnet34.pth -o xresnet34.npz
     python -m unet_tpu_torch import-model model_sd.pth models/imported
     python -m unet_tpu_torch doctor [--kernels]
+    python -m unet_tpu_torch bench [--tile 512 --batch-size 16 --steps 20] [--device cpu]
 
 Each subcommand takes the arguments of its ``unet_tpu`` counterpart.
 ``run`` drives the reference's stages (``Create_tiles``, ``Train``,
@@ -54,9 +55,16 @@ to a JSON file); both compute in bf16.
 device, a one-process data-parallel group (``mesh``), the nvcc
 toolchain, the native decoder and, with ``--kernels`` (also spelled
 ``--pallas``, as in ``unet_tpu``), every CUDA kernel against
-its plain version; it exits 0 only when every check passes. Arguments
-whose feature is not ported yet exit with "not yet ported" instead of
-being ignored. The other subcommands come with later slices.
+its plain version; it exits 0 only when every check passes.
+``bench`` (``bench.py``) measures the port: the headline JSON
+(``train_tiles_per_sec_per_chip_512``) on stdout first and last, one
+``{"section": ...}`` line for each of ``train_parity_topology``,
+``predict``, ``serving``, ``loader``, ``e2e_train``, ``scaling`` and
+``kernels`` on stderr, then the whole detail; each section in a child
+process. It exits 1 when a section fails, times out or is skipped for
+its budget, and when the training headline fails ("training benchmark
+failed"): nothing stands in for a failure. ``--device cpu`` runs it on
+the CPU (the kernels section then says it was skipped).
 """
 
 from __future__ import annotations
@@ -265,6 +273,15 @@ def build_parser() -> argparse.ArgumentParser:
     dr.add_argument("--kernels", "--pallas", dest="kernels", action="store_true",
                     help="also build every CUDA kernel and check it against its "
                          "plain version on the card")
+
+    bench = sub.add_parser("bench", help="run the training/inference benchmark: the "
+                                         "headline JSON on stdout, each section on stderr")
+    bench.add_argument("--tile", type=int, default=512)
+    bench.add_argument("--batch-size", type=int, default=16)
+    bench.add_argument("--steps", type=int, default=20)
+    bench.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu only when asked: then "
+                            "the kernels section is skipped)")
     return ap
 
 
@@ -349,6 +366,16 @@ def _dispatch(args) -> int:
 
         results = run_doctor(kernels=args.kernels)
         return 0 if all(ok for ok, _ in results.values()) else 1
+    if args.command == "bench":
+        from .bench import BenchmarkFailed, failed_sections, run_benchmark
+
+        try:
+            detail = run_benchmark(tile=args.tile, batch_size=args.batch_size,
+                                   steps=args.steps, device=args.device)
+        except BenchmarkFailed as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        return 1 if failed_sections(detail) else 0
     if args.command == "tile":
         from .tiling import split_raster
 

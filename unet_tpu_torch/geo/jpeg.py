@@ -626,6 +626,7 @@ class _BitWriter:
         while self.nbits >= 8:
             self.nbits -= 8
             b = (self.acc >> self.nbits) & 0xFF
+            self.acc &= (1 << self.nbits) - 1  # keep the pending bits only: linear time
             self.out.append(b)
             if b == 0xFF:
                 self.out.append(0x00)
