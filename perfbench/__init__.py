@@ -1,0 +1,3 @@
+"""The benchmark of the PyTorch/CUDA port: ``python3 perfbench/run.py
+--workload <cell> --seed <n> --seconds <s> --trace <0|1>`` runs one cell
+once and prints one JSON line."""
