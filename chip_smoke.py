@@ -2045,7 +2045,7 @@ def surface_grad_accum(trainer) -> dict:
     for k in GRAD_ACCUMS:
         trainer.cfg = replace(trainer.cfg, grad_accum=k)
         trainer.init_state()
-        trainer._step_times.clear()
+        trainer.step_spans.spans.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # the weights, Adam and earlier phases' state

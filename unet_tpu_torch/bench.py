@@ -145,7 +145,7 @@ def bench_train(tile: int = 512, batch_size: int = 8, steps: int = 24,
     from .data.augment import AugmentConfig, augment_batch
     from .train.losses import cross_entropy, fold_loss_layout
     from .train.optimizer import OneCycleAdam
-    from .predict.predict import Spans
+    from .utils.profiling import DeviceSpans
 
     dev = resolve_device(device)
     model = _model(arch, n_classes, c_in, tpu_opt, dev).train()
@@ -175,7 +175,7 @@ def bench_train(tile: int = 512, batch_size: int = 8, steps: int = 24,
     for _ in range(WARM_STEPS):
         step()
     _sync(dev)
-    spans = Spans(dev)
+    spans = DeviceSpans(dev)
     t0 = time.perf_counter()
     for _ in range(steps):
         spans.start()
@@ -222,13 +222,14 @@ def bench_predict(tile: int = 512, batch_size: int = 16, steps: int = 20,
     """Forward plus softmax throughput in bf16 on a device-resident float32
     batch (the ``Predictor``'s probabilities function), one warm forward,
     then ``steps`` timed ones."""
-    from .predict.predict import Spans, make_probs_fn
+    from .predict.predict import make_probs_fn
+    from .utils.profiling import DeviceSpans
 
     dev = resolve_device(device)
     probs_fn = make_probs_fn(_model(arch, n_classes, c_in, tpu_opt, dev), regression=False)
     x = torch.from_numpy(np.random.default_rng(0).integers(
         0, 255, (batch_size, c_in, tile, tile)).astype(np.float32)).to(dev)
-    spans = Spans(dev)
+    spans = DeviceSpans(dev)
     with torch.inference_mode():
         probs_fn(x)
         _sync(dev)

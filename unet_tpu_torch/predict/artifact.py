@@ -58,7 +58,8 @@ from torch import nn
 
 from ..data.augment import image_scale
 from ..utils.device import resolve_device
-from .predict import BatchPredictor, Spans, make_probs_fn
+from ..utils.profiling import DeviceSpans, StepTimer
+from .predict import BatchPredictor, make_probs_fn
 
 MAGIC = "utaot-torch-v1"
 JAX_MAGIC = "utaot-v1"
@@ -327,7 +328,8 @@ class ArtifactPredictor(BatchPredictor):
         self.tta = bool(tta)
         self._weights = [torch.from_numpy(a).to(self.device) for a in leaves]
         self._scales = [torch.from_numpy(s).to(self.device) for s in scales]
-        self._forwards = Spans(self.device)
+        self._forwards = DeviceSpans(self.device)
+        self.timer = StepTimer()
         self.scenes: List[dict] = []
 
     def _call(self, x: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,20 @@ on every tier; the other ranks run the forwards only (``_forwards_only``)
 and their forwards return None. The window or tile height must be
 divisible by 32·S, checked before any compute.
 
+Every host phase of a served scene is a ``StepTimer`` phase
+(``utils/profiling.py``) of ``predictor.timer``, a new timer each scene,
+and the scene's record sums them in ``host_s``: ``serve.read`` (the
+scene, or on the streamed tier each window of rows), ``serve.plan``
+(header, tier, windows, the mosaic or band), ``serve.stack`` (a batch's
+windows stacked, the last batch padded), ``serve.h2d`` (the batch
+contiguous, pinned and its copy queued), ``serve.forward`` (issuing the
+forward and ``finish_probs``), ``serve.add`` (the batch's ``blend_count``
+adds), ``serve.finalize`` (finalize and fetch queued), ``serve.fetch``
+(the host's wait on the fetch), ``serve.write`` (the output) and, where
+a thread builds the batches ahead, ``serve.wait`` (the loop's wait on
+it). No phase encloses another, so under a profiler the card's idle
+time is named by the one phase the host is in.
+
 Output modes: argmax class map (uint8, default), ``all_classes``
 (float32 stack), ``specific_class`` (float32 band), ``regression``
 (float32 values, nodata −9999 in a mosaic), ``large_file`` (tiles:
@@ -64,6 +78,7 @@ from ..parallel import halo, mesh
 from ..tiling.windows import Window, generate_windows
 from ..train.checkpoint import load_bundle
 from ..utils.device import resolve_device
+from ..utils.profiling import DeviceSpans, StepTimer
 from ..utils.progress import TileProgress
 from .figures import plot_valid_predict
 from .merge import MosaicAccumulator, grid_layout, tile_extent_info
@@ -151,50 +166,18 @@ def finish_probs(probs: torch.Tensor, folded: bool = False,
     return probs
 
 
-class Spans:
-    """Durations of timed spans of work: on the card a pair of CUDA events
-    around each (device time, read once at the end, no wait in between), on
-    the CPU the host clock."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.device = device
-        self._spans: List = []
-        self._t0 = None
-
-    def start(self) -> None:
-        if self.cuda:
-            self._t0 = torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self) -> None:
-        if self.cuda:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            self._spans.append((self._t0, end))
-        else:
-            self._spans.append(time.perf_counter() - self._t0)
-
-    def ms(self) -> List[float]:
-        """Milliseconds of every span so far (waits for the card)."""
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-            return [s.elapsed_time(e) for s, e in self._spans]
-        return [t * 1e3 for t in self._spans]
-
-
 class BatchPredictor:
     """The batch surface every prediction path takes through ``predictor=``:
     ``predict_batch_device`` (tiles to the device in their storage dtype,
-    through pinned memory on the card, each forward timed by ``Spans``),
-    ``predict_batch`` and ``forward_ms``. A subclass sets ``device`` and
-    ``_forwards`` and computes (B, n_out, H, W) probabilities of the raw
-    (B, H, W, C) device tiles in ``_forward``."""
+    through pinned memory on the card, each forward timed by
+    ``DeviceSpans``), ``predict_batch`` and ``forward_ms``. A subclass sets
+    ``device``, ``_forwards`` and ``timer`` (the host phases, ``StepTimer``)
+    and computes (B, n_out, H, W) probabilities of the raw (B, H, W, C)
+    device tiles in ``_forward``."""
 
     device: torch.device
-    _forwards: Spans
+    _forwards: DeviceSpans
+    timer: StepTimer
     space: Optional[halo.SpaceScope] = None  # spatial partitioning: the space group
     primary = True  # the rank that adds, finalizes and writes
 
@@ -209,16 +192,18 @@ class BatchPredictor:
         (or the finished forms of ``finish_probs``; None on a spatial rank
         other than 0). Tiles cross to the device in their storage dtype;
         the float cast and scaling run there."""
-        x = torch.from_numpy(np.ascontiguousarray(images))
-        cuda = self.device.type == "cuda"
-        # from pinned memory the copy is queued behind earlier work instead
-        # of waiting for it, as a pageable copy does
-        x = x.pin_memory().to(self.device, non_blocking=True) if cuda else x
-        self._forwards.start()
-        out = self._forward(x)
-        if out is not None:
-            out = finish_probs(out, quantize_int8=quantize_int8, argmax_u8=argmax_u8)
-        self._forwards.stop()
+        with self.timer.phase("serve.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(images))
+            # from pinned memory the copy is queued behind earlier work
+            # instead of waiting for it, as a pageable copy does
+            if self.device.type == "cuda":
+                x = x.pin_memory().to(self.device, non_blocking=True)
+        with self.timer.phase("serve.forward"):
+            self._forwards.start()
+            out = self._forward(x)
+            if out is not None:
+                out = finish_probs(out, quantize_int8=quantize_int8, argmax_u8=argmax_u8)
+            self._forwards.stop()
         return out
 
     def predict_batch(self, images: np.ndarray) -> np.ndarray:
@@ -240,7 +225,10 @@ class Predictor(BatchPredictor):
     mosaic's adds (``blend_count`` launches on the card), the band's rows
     and its batches that span two window rows, the finalize's seconds
     (device time on the card), the host's seconds reading the scene and
-    writing the output, and the scene's seconds.
+    writing the output, the scene's seconds, and ``host_s``: the host
+    seconds of each of the serve loop's phases (``serve.*``), summed over
+    the scene. ``timer`` holds the phases of the scene being served (the
+    last one after it).
 
     ``spatial`` = S > 1: this process is one of a process group of
     exactly S ranks (``ValueError``, naming ``parallel.mesh.launch``,
@@ -273,7 +261,8 @@ class Predictor(BatchPredictor):
         if self.space is not None:
             probs_fn = spatial_probs_fn(probs_fn, self.space)
         self.probs_fn = tta_probs_fn(probs_fn) if self.tta else probs_fn
-        self._forwards = Spans(self.device)
+        self._forwards = DeviceSpans(self.device)
+        self.timer = StepTimer()
         self.scenes: List[dict] = []
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -303,13 +292,15 @@ def _forwards_only(predictor: BatchPredictor, batches) -> bool:
     return True
 
 
-def _read_ahead(batches: Sequence, load: Callable):
+def _read_ahead(batches: Sequence, load: Callable, timer: StepTimer):
     """``load(b)`` of each of ``batches`` in order, each read on a thread
-    ``READ_AHEAD`` batches ahead of the caller."""
+    ``READ_AHEAD`` batches ahead of the caller; the caller's wait for each
+    is the phase ``serve.wait``."""
     with cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="rows") as pool:
         reads = deque(pool.submit(load, b) for b in batches[:READ_AHEAD])
         for k in range(len(batches)):
-            batch = reads.popleft().result()
+            with timer.phase("serve.wait"):
+                batch = reads.popleft().result()
             if k + READ_AHEAD < len(batches):
                 reads.append(pool.submit(load, batches[k + READ_AHEAD]))
             yield batch
@@ -411,51 +402,60 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
     batch ``READ_AHEAD`` batches ahead of the forward. Fills ``record``;
     returns the output's nodata (None on a spatial rank other than 0,
     ``_forwards_only``)."""
-    windows = generate_windows(height, width, patch, patch_overlap)
-    bs = predictor.batch_size
-    batches, band_rows = band_plan(windows, bs)
-    record.update(windows=len(windows), batches=len(batches), band_rows=band_rows,
-                  wrapping_batches=sum(b[0].y != b[-1].y for b in batches),
-                  adds=sum(len({win.y for win in b}) for b in batches))
+    timer = predictor.timer
+    with timer.phase("serve.plan"):
+        windows = generate_windows(height, width, patch, patch_overlap)
+        bs = predictor.batch_size
+        batches, band_rows = band_plan(windows, bs)
+        record.update(windows=len(windows), batches=len(batches), band_rows=band_rows,
+                      wrapping_batches=sum(b[0].y != b[-1].y for b in batches),
+                      adds=sum(len({win.y for win in b}) for b in batches))
 
     def load(chunk):
         r0 = chunk[0].y
         rows = read_rows(r0, chunk[-1].y + chunk[-1].h)
-        batch = np.stack([rows[win.y - r0:win.y - r0 + win.h, win.x:win.x + win.w]
-                          for win in chunk])
-        if len(chunk) < bs:
-            batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), 0)])
+        with timer.phase("serve.stack"):
+            batch = np.stack([rows[win.y - r0:win.y - r0 + win.h, win.x:win.x + win.w]
+                              for win in chunk])
+            if len(chunk) < bs:
+                batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), 0)])
         return batch
 
-    if _forwards_only(predictor, _read_ahead(batches, load)):
+    if _forwards_only(predictor, _read_ahead(batches, load, timer)):
         return None
-    n_out = int(predictor.manifest.get("n_out", 2))
-    band = DeviceBand(band_rows, width, n_out, device=predictor.device)
-    finalize = Spans(predictor.device)
+    with timer.phase("serve.plan"):
+        n_out = int(predictor.manifest.get("n_out", 2))
+        band = DeviceBand(band_rows, width, n_out, device=predictor.device)
+    finalize = DeviceSpans(predictor.device)
     pending: deque = deque()  # (host tensor, event) of finalized rows
 
     def drain(keep: int) -> None:
         while len(pending) > keep:
             host, event = pending.popleft()
-            if event is not None:
-                event.synchronize()
-            emit(host.numpy())
+            with timer.phase("serve.fetch"):
+                if event is not None:
+                    event.synchronize()
+                rows = host.numpy()
+            with timer.phase("serve.write"):
+                emit(rows)
 
     nodata = None
-    for k, (batch, chunk) in enumerate(zip(_read_ahead(batches, load), batches)):
+    for k, (batch, chunk) in enumerate(zip(_read_ahead(batches, load, timer), batches)):
         probs = predictor.predict_batch_device(batch)[:len(chunk)]
-        start = 0
-        for end in range(1, len(chunk) + 1):
-            if end == len(chunk) or chunk[end].y != chunk[start].y:
-                band.add_batch(probs[start:end], [chunk[start].y] * (end - start),
-                               [win.x for win in chunk[start:end]])
-                start = end
+        with timer.phase("serve.add"):
+            start = 0
+            for end in range(1, len(chunk) + 1):
+                if end == len(chunk) or chunk[end].y != chunk[start].y:
+                    band.add_batch(probs[start:end], [chunk[start].y] * (end - start),
+                                   [win.x for win in chunk[start:end]])
+                    start = end
         upto = batches[k + 1][0].y if k + 1 < len(batches) else height
         if upto > band.top:
-            finalize.start()
-            out, nodata = band.finalize_rows(upto, **mode)
-            pending.append(_fetch(out))
-            finalize.stop()
+            with timer.phase("serve.finalize"):
+                finalize.start()
+                out, nodata = band.finalize_rows(upto, **mode)
+                pending.append(_fetch(out))
+                finalize.stop()
             drain(1)
     drain(0)
     record["finalize_s"] = sum(finalize.ms()) / 1e3
@@ -469,35 +469,43 @@ def _serve_full(predictor: Predictor, hwc: np.ndarray, patch: int,
     final window), into one ``DeviceMosaic``, finalized on the device.
     Returns (output, nodata) on the host; (None, None) on a spatial rank
     other than 0 (``_forwards_only``)."""
-    h, w = hwc.shape[:2]
-    windows = generate_windows(h, w, patch, patch_overlap)
-    bs = predictor.batch_size
-    chunks = [windows[start:start + bs] for start in range(0, len(windows), bs)]
-    record.update(windows=len(windows), batches=len(chunks), adds=len(chunks))
+    timer = predictor.timer
+    with timer.phase("serve.plan"):
+        h, w = hwc.shape[:2]
+        windows = generate_windows(h, w, patch, patch_overlap)
+        bs = predictor.batch_size
+        chunks = [windows[start:start + bs] for start in range(0, len(windows), bs)]
+        record.update(windows=len(windows), batches=len(chunks), adds=len(chunks))
 
     def batch_of(chunk):
-        batch = np.stack([hwc[win.indices()] for win in chunk])
-        if len(chunk) < bs:
-            batch = np.concatenate(
-                [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
+        with timer.phase("serve.stack"):
+            batch = np.stack([hwc[win.indices()] for win in chunk])
+            if len(chunk) < bs:
+                batch = np.concatenate(
+                    [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
         return batch
 
     if _forwards_only(predictor, map(batch_of, chunks)):
         return None, None
-    n_out = int(predictor.manifest.get("n_out", 2))
-    mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
+    with timer.phase("serve.plan"):
+        n_out = int(predictor.manifest.get("n_out", 2))
+        mosaic = DeviceMosaic(h, w, n_out, device=predictor.device)
     for chunk in chunks:
         probs = predictor.predict_batch_device(batch_of(chunk))[:len(chunk)]
-        mosaic.add_batch(probs, [win.y for win in chunk], [win.x for win in chunk])
-    finalize = Spans(predictor.device)
-    finalize.start()
-    out, nodata = mosaic.finish(**mode)
-    host, event = _fetch(out)
-    finalize.stop()
-    if event is not None:
-        event.synchronize()
+        with timer.phase("serve.add"):
+            mosaic.add_batch(probs, [win.y for win in chunk], [win.x for win in chunk])
+    finalize = DeviceSpans(predictor.device)
+    with timer.phase("serve.finalize"):
+        finalize.start()
+        out, nodata = mosaic.finish(**mode)
+        host, event = _fetch(out)
+        finalize.stop()
+    with timer.phase("serve.fetch"):
+        if event is not None:
+            event.synchronize()
+        out = host.numpy()
     record["finalize_s"] = sum(finalize.ms()) / 1e3
-    return host.numpy(), nodata
+    return out, nodata
 
 
 def predict_raster_streamed(
@@ -532,16 +540,26 @@ def predict_raster_streamed(
         predictor = Predictor(predict_model, batch_size=batch_size, device=device,
                               dtype=dtype, tta=tta, spatial=spatial)
     regression = predictor.regression or regression
-    info = tiff.read_info(raster_path)
-    patch = int(patch_size or predictor.manifest.get("patch_size", 400))
-    _check_spatial(predictor, spatial, patch)
-    n_out = int(predictor.manifest.get("n_out", 2))
-    if regression or all_classes:
-        out_bands, out_dtype, nodata = (n_out if all_classes else 1), np.float32, -9999.0
-    elif specific_class is not None:
-        out_bands, out_dtype, nodata = 1, np.float32, None
-    else:
-        out_bands, out_dtype, nodata = 1, np.uint8, None
+    timer = predictor.timer = StepTimer()
+    t0 = time.perf_counter()
+    with timer.phase("serve.plan"):
+        info = tiff.read_info(raster_path)
+        patch = int(patch_size or predictor.manifest.get("patch_size", 400))
+        _check_spatial(predictor, spatial, patch)
+        n_out = int(predictor.manifest.get("n_out", 2))
+        if regression or all_classes:
+            out_bands, out_dtype, nodata = (n_out if all_classes else 1), np.float32, -9999.0
+        elif specific_class is not None:
+            out_bands, out_dtype, nodata = 1, np.float32, None
+        else:
+            out_bands, out_dtype, nodata = 1, np.uint8, None
+        record = {"raster": str(raster_path), "tier": "streamed", "write_s": 0.0}
+        predictor.scenes.append(record)
+        rows = WindowedRows(str(raster_path))
+
+    def read_rows(r0: int, r1: int) -> np.ndarray:
+        with timer.phase("serve.read"):
+            return rows(r0, r1)
 
     def emit(out: np.ndarray) -> None:
         t1 = time.perf_counter()
@@ -552,10 +570,6 @@ def predict_raster_streamed(
         writer.append_rows(out.astype(out_dtype, copy=False))
         record["write_s"] += time.perf_counter() - t1
 
-    t0 = time.perf_counter()
-    record = {"raster": str(raster_path), "tier": "streamed", "write_s": 0.0}
-    predictor.scenes.append(record)
-    rows = WindowedRows(str(raster_path))
     try:
         with (tiff.StripStreamWriter(
                 str(output_path), info.height, info.width, out_bands, out_dtype,
@@ -563,11 +577,15 @@ def predict_raster_streamed(
                 compress=out_compress) if predictor.primary
               else contextlib.nullcontext()) as writer:
             _serve_banded(predictor, info.height, info.width, patch, patch_overlap,
-                          rows, emit, dict(regression=regression, all_classes=all_classes,
-                                           specific_class=specific_class), record)
+                          read_rows, emit, dict(regression=regression, all_classes=all_classes,
+                                                specific_class=specific_class), record)
+            if writer is not None:
+                with timer.phase("serve.write"):
+                    writer.close()  # the IFD, after the rows
     finally:
         rows.close()
     record["seconds"] = time.perf_counter() - t0
+    record["host_s"] = timer.totals()
     return str(output_path)
 
 
@@ -617,10 +635,13 @@ def predict_raster(
     patch = int(patch_size or predictor.manifest.get("patch_size", 400))
     _check_spatial(predictor, spatial, patch)
 
-    info0 = tiff.read_info(raster_path)
-    n_out = int(predictor.manifest.get("n_out", 2))
-    stream_bytes = info0.height * info0.width * (n_out + 1) * 4 \
-        + info0.height * info0.width * info0.bands * info0.dtype.itemsize
+    timer = predictor.timer = StepTimer()
+    t0 = time.perf_counter()
+    with timer.phase("serve.plan"):
+        info0 = tiff.read_info(raster_path)
+        n_out = int(predictor.manifest.get("n_out", 2))
+        stream_bytes = info0.height * info0.width * (n_out + 1) * 4 \
+            + info0.height * info0.width * info0.bands * info0.dtype.itemsize
     if stream_bytes > host_budget_bytes:
         if output_path is None:
             raise ValueError(
@@ -637,29 +658,28 @@ def predict_raster(
         # stream it from the written file
         return None, info0.transform, info0.crs
 
-    t0 = time.perf_counter()
-    scene = read_raster(raster_path)
-    read_s = time.perf_counter() - t0
-    hwc = np.moveaxis(scene.data, 0, 2)  # view, native dtype
-    h, w = hwc.shape[:2]
-    mode = dict(regression=regression, all_classes=all_classes,
-                specific_class=specific_class)
-    budget = device_budget_bytes
-    if predictor.device.type == "cuda":
-        budget = min(budget, free_device_bytes(predictor.device))
-    record = {"raster": str(raster_path), "read_s": read_s}
-    predictor.scenes.append(record)
-    nbytes = mosaic_bytes(h, w, n_out)
-    whole = nbytes <= budget
-    if predictor.space is not None:  # one tier for every rank: rank 0's
-        whole = mesh.broadcast_from_primary(whole, predictor.space.group)
+    with timer.phase("serve.read"):
+        scene = read_raster(raster_path)
+    with timer.phase("serve.plan"):
+        hwc = np.moveaxis(scene.data, 0, 2)  # view, native dtype
+        h, w = hwc.shape[:2]
+        mode = dict(regression=regression, all_classes=all_classes,
+                    specific_class=specific_class)
+        budget = device_budget_bytes
+        if predictor.device.type == "cuda":
+            budget = min(budget, free_device_bytes(predictor.device))
+        record = {"raster": str(raster_path), "read_s": timer.samples["serve.read"][-1]}
+        predictor.scenes.append(record)
+        nbytes = mosaic_bytes(h, w, n_out)
+        whole = nbytes <= budget
+        if predictor.space is not None:  # one tier for every rank: rank 0's
+            whole = mesh.broadcast_from_primary(whole, predictor.space.group)
+        record["tier"] = "full" if whole else "banded"
     if whole:
-        record["tier"] = "full"
         out, nodata = _serve_full(predictor, hwc, patch, patch_overlap, mode, record)
     else:
         print(f"Mosaic needs {nbytes/1e9:.1f} GB — accumulating in a band of rows "
               "on the device.")
-        record["tier"] = "banded"
         out = None
         done = 0
 
@@ -672,17 +692,17 @@ def predict_raster(
 
         nodata = _serve_banded(predictor, h, w, patch, patch_overlap,
                                lambda r0, r1: hwc[r0:r1], emit, mode, record)
-    if not predictor.primary:
-        record["seconds"] = time.perf_counter() - t0
-        return None, scene.transform, scene.crs
-    if class_zero:
-        out = _apply_class_zero(out, nodata)
-    t1 = time.perf_counter()
-    if output_path is not None:
-        write_raster(output_path, out, transform=scene.transform,
-                     crs=scene.crs, nodata=nodata, compress=out_compress)
-    record["write_s"] = time.perf_counter() - t1
+    if predictor.primary:  # the other ranks hold no output
+        with timer.phase("serve.write"):
+            if class_zero:
+                out = _apply_class_zero(out, nodata)
+            t1 = time.perf_counter()
+            if output_path is not None:
+                write_raster(output_path, out, transform=scene.transform,
+                             crs=scene.crs, nodata=nodata, compress=out_compress)
+            record["write_s"] = time.perf_counter() - t1
     record["seconds"] = time.perf_counter() - t0
+    record["host_s"] = timer.totals()
     return out, scene.transform, scene.crs
 
 

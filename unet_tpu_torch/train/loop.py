@@ -93,7 +93,7 @@ from ..models.unet import check_spatial_height
 from ..parallel import halo, mesh
 from ..utils.plots import (missing_modules, plot_lr_find, plot_training_overview,
                            visualize_data, visualize_data_path)
-from ..utils.profiling import StepTimer, device_trace
+from ..utils.profiling import DeviceSpans, StepTimer, device_trace
 from . import checkpoint as ckpt
 from . import metrics as M
 from .losses import build_loss, fold_loss_layout
@@ -263,7 +263,7 @@ class Trainer:
         self.generator = torch.Generator().manual_seed(cfg.seed + 1)  # augmentation draws
         self.timer = StepTimer()
         self.lr_find_result: Optional[Dict[str, Any]] = None
-        self._step_times: List[Any] = []  # per step: CUDA event pair or seconds
+        self.step_spans = DeviceSpans(self.device)  # one span a train step
 
     def close(self) -> None:
         self.train_loader.close()
@@ -398,29 +398,18 @@ class Trainer:
         """One optimizer step on a host batch (the trainer's optimizer and
         augmentation draws unless given); returns the loss as a device
         scalar (not fetched, so steps queue without a host sync)."""
-        if self.device.type == "cuda":
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-        else:
-            t0 = time.perf_counter()
+        self.step_spans.start()
         x, y = self.augment(*self.to_device(images, masks), "train",
                             generator or self.generator)
         loss = self.loss_and_grads(x, y)
         (optimizer or self.optimizer).step()
-        if self.device.type == "cuda":
-            end.record()
-            self._step_times.append((start, end))
-        else:
-            self._step_times.append(time.perf_counter() - t0)
+        self.step_spans.stop()
         return loss
 
     def step_ms(self) -> List[float]:
         """Milliseconds of every train step so far (device time on CUDA,
         from the host copy of the batch to the optimizer update)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            return [s.elapsed_time(e) for s, e in self._step_times]
-        return [t * 1e3 for t in self._step_times]
+        return self.step_spans.ms()
 
     # --- validation --------------------------------------------------------------
 
@@ -579,7 +568,7 @@ class Trainer:
         ``method`` is returned. The sweep leaves the model's weights
         changed: ``fit`` sets fresh ones after it."""
         t0 = time.perf_counter()
-        n_timed = len(self._step_times)
+        n_timed = len(self.step_spans.spans)
         self.set_weights()
         ratio = end_lr / start_lr
 
@@ -618,7 +607,7 @@ class Trainer:
                         break
         if window and not diverged:
             drain()
-        del self._step_times[n_timed:]  # step_ms() reports the fit's steps
+        del self.step_spans.spans[n_timed:]  # step_ms() reports the fit's steps
         lrs = lr_finder_lrs(start_lr, end_lr, num_it)[:len(losses)]
         self.lr_find_result = {
             "lrs": [float(v) for v in lrs], "losses": losses, "method": method,
