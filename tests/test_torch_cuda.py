@@ -788,6 +788,84 @@ def test_artifact_serves_on_the_card_like_the_bundle(dev, tmp_path):
     assert blend.blend_and_count.launches - before == art.scenes[-1]["adds"] > 0
 
 
+def test_planar_batch_crosses_pinned_and_serves_as_a_contiguous_one(dev, tmp_path):
+    """A batch gathered from a CHW scene is staged in pinned memory in its
+    planar order (a ``host_batch`` block crosses as it is) and reaches
+    ``_forward`` bit-equal to the contiguous batch of the pre-staging path,
+    with the same class maps; a served 1024² scene writes the map that
+    batches made contiguous on the host write, every batch interleaved on
+    the card."""
+    from unet_tpu_torch.geo import write_raster
+    from unet_tpu_torch.predict import predict as pp
+
+    pred = pp.Predictor(_tiny_bundle(tmp_path / "m", patch=128), batch_size=8, device=dev)
+    rng = np.random.default_rng(0)
+    hwc = np.moveaxis(rng.integers(0, 256, (3, 400, 440)).astype(np.uint8), 0, 2)
+    windows = [hwc[31 * k:31 * k + 128, 37 * k:37 * k + 128] for k in range(8)]
+    batch = np.stack(windows)
+    planar = (3 * 128 * 128, 128, 1, 128 * 128)
+    staged = pp.stage_batch(batch, dev)
+    assert staged.is_pinned() and staged.stride() == planar
+    assert staged.data_ptr() != batch.ctypes.data
+    block = pp.host_batch(windows, 8, dev)
+    assert torch.from_numpy(block).is_pinned()
+    assert pp.stage_batch(block, dev).data_ptr() == block.ctypes.data
+    rows = pp.host_batch([np.ascontiguousarray(w) for w in windows], 8, dev)
+    assert rows.flags.c_contiguous and torch.from_numpy(rows).is_pinned()
+    assert pp.stage_batch(rows, dev).data_ptr() == rows.ctypes.data
+    seen = []
+    real = pred._forward
+
+    def capture(x):
+        seen.append(x.clone())
+        return real(x)
+
+    pred._forward = capture
+    maps = [pred.predict_batch_device(b, argmax_u8=True)
+            for b in (batch, block, np.ascontiguousarray(batch))]
+    assert pred.planar_batches == 2
+    want = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+    for x, m in zip(seen, maps):
+        assert x.device.type == "cuda" and x.is_contiguous() and torch.equal(x, want)
+        assert torch.equal(m, maps[-1])
+    del pred._forward
+
+    write_raster(tmp_path / "s.tif", rng.integers(0, 256, (3, 1024, 1024)).astype(np.uint8),
+                 transform=(0.0, 1.0, 0.0, 0.0, 0.0, -1.0), crs="EPSG:25832")
+    out, _, _ = pp.predict_raster(None, str(tmp_path / "s.tif"), patch_size=128,
+                                  predictor=pred, device=dev)
+    staged_call = pred.predict_batch_device
+    pred.predict_batch_device = lambda images, **kw: staged_call(np.ascontiguousarray(images),
+                                                                 **kw)
+    before, _, _ = pp.predict_raster(None, str(tmp_path / "s.tif"), patch_size=128,
+                                     predictor=pred, device=dev)
+    np.testing.assert_array_equal(out, before)
+    first, second = pred.scenes
+    assert first["planar_batches"] == first["batches"] > 1 and first["windows"] % 8
+    assert second["planar_batches"] == 0
+
+
+def test_a_host_batch_block_is_not_handed_out_while_its_copy_is_pending(dev):
+    """A ``host_batch`` block freed while its H2D copy still waits behind
+    device work is not handed out again before the copy has read it: the
+    caching host allocator records the copy's event on the block, so
+    blocks gathered meanwhile do not overwrite the batch on its way."""
+    from unet_tpu_torch.predict import predict as pp
+
+    rng = np.random.default_rng(3)
+    hwc = np.moveaxis(rng.integers(0, 256, (3, 300, 300)).astype(np.uint8), 0, 2)
+    wins = [hwc[9 * k:9 * k + 128, 13 * k:13 * k + 128] for k in range(8)]
+    block = pp.host_batch(wins, 8, dev)
+    want = torch.from_numpy(np.ascontiguousarray(block))
+    torch.cuda._sleep(1 << 30)  # hold the stream: the copy below stays pending
+    x = pp.stage_batch(block, dev).to(dev, non_blocking=True)
+    del block
+    others = [pp.host_batch([np.full_like(w, 255 - k) for w in wins], 8, dev) for k in range(4)]
+    torch.cuda.synchronize()
+    assert torch.equal(x.contiguous().cpu(), want)
+    assert all(int(o.min()) == 255 - k for k, o in enumerate(others))
+
+
 @pytest.mark.parametrize("k", [2, 4, 8])
 def test_slice_batch_norm_kernels_against_plain(dev, k):
     """``SliceBatchNorm`` (``UNET_TPU_BN=slice:k``) at batch 4: one forward

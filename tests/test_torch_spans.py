@@ -2,8 +2,12 @@
 loop's host phases, on the CPU: each tier's scene record sums every phase
 of its host work in ``host_s``; under ``torch.profiler`` the phases are
 ranges of their names, none inside another; without a profiler a phase
-makes no range; the benchmark's readers of the phases; and the device-time
-spans behind ``Predictor.forward_ms()`` and ``Trainer.step_ms()``.
+makes no range; the benchmark's readers of the phases; the device-time
+spans behind ``Predictor.forward_ms()`` and ``Trainer.step_ms()``; and the
+staging of a batch in ``serve.stack`` and ``serve.h2d``: a batch gathered
+from a CHW scene keeps its planar byte order on the host, one of
+interleaved rows its interleaved order, reaches ``_forward`` as the
+contiguous (B, H, W, C) tile it would have been, and serves the same maps.
 
 Port only: the bundle is the port's own export, nothing of JAX runs."""
 
@@ -16,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from unet_tpu_torch.geo import write_raster
+from unet_tpu_torch.geo import read_raster, write_raster
 from unet_tpu_torch.models import build_unet, init_weights
 from unet_tpu_torch.models.unet import TPU_OPT_TOPOLOGY_VERSION
 from unet_tpu_torch.predict import predict as tp
@@ -232,3 +236,143 @@ def test_step_ms_gives_one_value_a_step(tiles, tmp_path):
         assert k == 2 and all(v > 0 for v in t.step_ms())
     finally:
         t.close()
+
+
+PLANAR = (3 * PATCH * PATCH, PATCH, 1, PATCH * PATCH)  # (B, H, W, C) strides of a (B, C, H, W) block
+
+
+def _windows(hwc, n=BATCH):
+    return [hwc[7 * k:7 * k + PATCH, 11 * k:11 * k + PATCH] for k in range(n)]
+
+
+def _planar_batch(seed=0, dtype=np.uint8, n=BATCH):
+    """A batch as the serve loop built it before staging: ``np.stack`` of
+    windows of an HWC view of a CHW scene."""
+    chw = np.random.default_rng(seed).integers(0, 256, (3, 120, 140)).astype(dtype)
+    return np.stack(_windows(np.moveaxis(chw, 0, 2), n))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_a_gathered_batch_is_staged_in_its_planar_order(dtype):
+    """``np.stack`` keeps the CHW scene's stride order, and staging keeps it
+    too: no byte is reordered on the host. A ``host_batch`` block gathers
+    the same bytes in that order, pads a short batch with its last window
+    and crosses as it is."""
+    cpu = torch.device("cpu")
+    batch = _planar_batch(dtype=dtype)
+    assert tuple(s // batch.itemsize for s in batch.strides) == PLANAR
+    staged = tp.stage_batch(batch, cpu)
+    assert staged.stride() == PLANAR and not staged.is_contiguous()
+    assert staged.data_ptr() == batch.ctypes.data
+    chw = np.random.default_rng(0).integers(0, 256, (3, 120, 140)).astype(dtype)
+    block = tp.host_batch(_windows(np.moveaxis(chw, 0, 2)), BATCH, cpu)
+    assert tuple(s // block.itemsize for s in block.strides) == PLANAR
+    np.testing.assert_array_equal(block, batch)
+    assert tp.stage_batch(block, cpu).data_ptr() == block.ctypes.data
+    short = tp.host_batch(_windows(np.moveaxis(chw, 0, 2), 2), BATCH, cpu)
+    np.testing.assert_array_equal(short, batch[[0, 1, 1, 1]])
+
+
+@pytest.fixture(scope="module")
+def artifact(served):
+    """The float32 ``.uta`` artifact of the served bundle, exported on the CPU."""
+    from unet_tpu_torch.predict import artifact as tart
+
+    return str(tart.export_artifact(served["bundle"], str(served["root"] / "m.uta"),
+                                    dtype=torch.float32, device="cpu"))
+
+
+FORMS = {"planar": lambda b: b, "contiguous": np.ascontiguousarray,
+         "host_batch": lambda b: tp.host_batch(list(b), len(b), torch.device("cpu")),
+         "flipped": lambda b: np.ascontiguousarray(b[:, ::-1])[:, ::-1]}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("kind", ["bundle", "artifact"])
+def test_forward_receives_the_contiguous_batch(served, artifact, kind, form):
+    """Whatever the batch's strides, ``_forward`` gets the contiguous
+    (B, H, W, C) tensor that ``np.ascontiguousarray`` of it gives, and the
+    probabilities are those of that tensor; ``planar_batches`` counts the
+    batches interleaved on the device."""
+    from unet_tpu_torch.predict import artifact as tart
+
+    pred = (_predictor(served) if kind == "bundle"
+            else tart.load_artifact(artifact, batch_size=BATCH, device="cpu"))
+    batch = _planar_batch(seed=1)
+    images = FORMS[form](batch)
+    seen = []
+    real = pred._forward
+
+    def capture(x):
+        seen.append(x.clone())
+        return real(x)
+
+    pred._forward = capture
+    got = pred.predict_batch_device(images)
+    assert pred.planar_batches == (form in ("planar", "host_batch"))
+    want = pred.predict_batch_device(np.ascontiguousarray(batch))
+    first, ref = seen
+    assert first.is_contiguous() and first.shape == (BATCH, PATCH, PATCH, 3)
+    assert torch.equal(first, torch.from_numpy(np.ascontiguousarray(batch)))
+    assert torch.equal(first, ref) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tier", ["full", "banded", "streamed"])
+def test_served_map_equals_the_map_of_contiguous_batches(served, tmp_path, tier):
+    """A scene served through staged batches writes the class map, byte for
+    byte, that batches made contiguous on the host first write; the last
+    batch is padded. The whole-scene and banded tiers window the CHW scene,
+    so their batches are planar and every one is interleaved on the device;
+    the streamed tier's rows are decoded (rows, W, C), so its batches are
+    contiguous and none is."""
+    maps, records, handed = [], [], []
+    for contiguous in (False, True):
+        pred = tp.Predictor(served["bundle"], batch_size=3, device="cpu", dtype=torch.float32)
+        staged = pred.predict_batch_device
+        if contiguous:
+            pred.predict_batch_device = lambda images, **kw: staged(
+                np.ascontiguousarray(images), **kw)
+        else:
+            def observe(images, **kw):
+                handed.append(images)
+                return staged(images, **kw)
+
+            pred.predict_batch_device = observe
+        out = tmp_path / f"{contiguous}.tif"
+        tp.predict_raster(served["bundle"], served["scene"], str(out), patch_size=PATCH,
+                          batch_size=3, predictor=pred, device="cpu", dtype=torch.float32,
+                          **TIER_KW[tier])
+        maps.append(read_raster(out).data)
+        (record,) = pred.scenes
+        records.append(record)
+    np.testing.assert_array_equal(maps[0], maps[1])
+    planar, contiguous = records
+    assert planar["tier"] == tier and planar["windows"] % 3
+    assert len(handed) == planar["batches"] > 0
+    if tier == "streamed":
+        assert planar["planar_batches"] == 0
+        assert all(b.flags.c_contiguous for b in handed)
+    else:
+        assert planar["planar_batches"] == planar["batches"]
+        assert all(tuple(s // b.itemsize for s in b.strides) == (3 * PATCH * PATCH, PATCH, 1,
+                                                                PATCH * PATCH) for b in handed)
+    assert contiguous["planar_batches"] == 0
+
+
+@pytest.mark.parametrize("layout", ["chw", "hwc"])
+def test_host_batch_keeps_the_windows_byte_order(layout):
+    """Windows of a CHW scene are gathered into a planar block, windows of
+    an interleaved (rows, W, C) block, as the streamed tier decodes them,
+    into a contiguous one: whole rows are copied and no byte is reordered
+    on the host, and a batch of interleaved windows crosses with no
+    interleave on the device."""
+    cpu = torch.device("cpu")
+    chw = np.random.default_rng(2).integers(0, 256, (3, 120, 140)).astype(np.uint8)
+    hwc = np.moveaxis(chw, 0, 2) if layout == "chw" else np.ascontiguousarray(
+        np.moveaxis(chw, 0, 2))
+    block = tp.host_batch(_windows(hwc, 3), BATCH, cpu)
+    np.testing.assert_array_equal(block, np.stack(_windows(hwc, 3) + _windows(hwc, 3)[-1:]))
+    assert block.flags.c_contiguous == (layout == "hwc")
+    strides = tuple(s // block.itemsize for s in block.strides)
+    assert strides == (PLANAR if layout == "chw" else (3 * PATCH * PATCH, 3 * PATCH, 3, 1))
+    assert tp.stage_batch(block, cpu).is_contiguous() == (layout == "hwc")

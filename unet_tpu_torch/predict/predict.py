@@ -2,9 +2,10 @@
 
 Counterpart of ``unet_tpu/predict/predict.py``. Rasters stay in their
 storage dtype on the host; each batch crosses to the device in that dtype
-(through pinned memory on the card, without waiting for earlier work), is
-scaled there, and runs through the U-Net in the compute dtype (bf16 on the
-card).
+and in the byte order it has on the host (through pinned memory on the
+card, without waiting for earlier work), is made a contiguous
+(B, H, W, C) tile and scaled there, and runs through the U-Net in the
+compute dtype (bf16 on the card).
 
 * ``predict_raster`` (``serve``): sliding windows over one scene of any
   size, the overlap sums added on the device by the ``blend_count`` CUDA
@@ -41,14 +42,17 @@ Every host phase of a served scene is a ``StepTimer`` phase
 and the scene's record sums them in ``host_s``: ``serve.read`` (the
 scene, or on the streamed tier each window of rows), ``serve.plan``
 (header, tier, windows, the mosaic or band), ``serve.stack`` (a batch's
-windows stacked, the last batch padded), ``serve.h2d`` (the batch
-contiguous, pinned and its copy queued), ``serve.forward`` (issuing the
-forward and ``finish_probs``), ``serve.add`` (the batch's ``blend_count``
-adds), ``serve.finalize`` (finalize and fetch queued), ``serve.fetch``
-(the host's wait on the fetch), ``serve.write`` (the output) and, where
-a thread builds the batches ahead, ``serve.wait`` (the loop's wait on
-it). No phase encloses another, so under a profiler the card's idle
-time is named by the one phase the host is in.
+windows gathered into a pinned host block in their own byte order,
+planar for a CHW scene, ``host_batch``, the last batch padded in place),
+``serve.h2d`` (the block's copy queued and, for a planar block, its
+interleave to (B, H, W, C) issued on the device, ``stage_batch``),
+``serve.forward`` (issuing the forward and ``finish_probs``),
+``serve.add`` (the batch's ``blend_count`` adds), ``serve.finalize``
+(finalize and fetch queued), ``serve.fetch`` (the host's wait on the
+fetch), ``serve.write`` (the output) and, where a thread builds the
+batches ahead, ``serve.wait`` (the loop's wait on it). No phase encloses
+another, so under a profiler the card's idle time is named by the one
+phase the host is in.
 
 Output modes: argmax class map (uint8, default), ``all_classes``
 (float32 stack), ``specific_class`` (float32 band), ``regression``
@@ -166,6 +170,45 @@ def finish_probs(probs: torch.Tensor, folded: bool = False,
     return probs
 
 
+def host_batch(tiles: Sequence[np.ndarray], size: int, device: torch.device) -> np.ndarray:
+    """``tiles`` ((H, W, C) windows of a scene, at most ``size``) gathered
+    into a new (B, H, W, C) host block in the windows' own byte order,
+    pinned where ``device`` is a card (PyTorch's caching host allocator):
+    windows of a CHW scene (the channel their largest stride) go into the
+    (B, H, W, C) view of a (B, C, H, W) block, any other into a contiguous
+    one, so ``np.stack`` copies whole rows either way. Rows past the tiles
+    repeat the last, padding a short batch. ``predict_batch_device`` sends
+    the block across as it is."""
+    h, w, c = tiles[0].shape
+    block = torch.empty(size * c * h * w * tiles[0].itemsize, dtype=torch.uint8,
+                        pin_memory=device.type == "cuda").numpy().view(tiles[0].dtype)
+    if tiles[0].strides[2] == max(tiles[0].strides):
+        batch = block.reshape(size, c, h, w).transpose(0, 2, 3, 1)
+    else:
+        batch = block.reshape(size, h, w, c)
+    np.stack(tiles, out=batch[:len(tiles)])
+    batch[len(tiles):] = batch[len(tiles) - 1]
+    return batch
+
+
+def stage_batch(images, device: torch.device) -> torch.Tensor:
+    """The host tensor a (B, H, W, C) batch (numpy or a CPU tensor) crosses
+    to ``device`` from, in the batch's own byte order: the host reorders no
+    byte. On the card a pinned batch (a ``host_batch`` block or a tensor)
+    crosses as it is; any other is copied once with ``np.copyto`` (a
+    straight memcpy for a dense batch) into a pinned block of its strides
+    from PyTorch's caching host allocator, which hands a block out again
+    only after the copy that read it has finished. Elsewhere the batch
+    itself."""
+    x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+        images if min(images.strides, default=0) >= 0 else np.ascontiguousarray(images))
+    if device.type != "cuda" or x.is_pinned():
+        return x
+    block = torch.empty_like(x, pin_memory=True)  # a dense batch's strides kept
+    np.copyto(block.numpy(), x.numpy())
+    return block
+
+
 class BatchPredictor:
     """The batch surface every prediction path takes through ``predictor=``:
     ``predict_batch_device`` (tiles to the device in their storage dtype,
@@ -173,31 +216,40 @@ class BatchPredictor:
     ``DeviceSpans``), ``predict_batch`` and ``forward_ms``. A subclass sets
     ``device``, ``_forwards`` and ``timer`` (the host phases, ``StepTimer``)
     and computes (B, n_out, H, W) probabilities of the raw (B, H, W, C)
-    device tiles in ``_forward``."""
+    device tiles in ``_forward``. ``planar_batches`` counts the batches
+    that crossed in another byte order than (B, H, W, C) and were
+    interleaved on the device."""
 
     device: torch.device
     _forwards: DeviceSpans
     timer: StepTimer
     space: Optional[halo.SpaceScope] = None  # spatial partitioning: the space group
     primary = True  # the rank that adds, finalizes and writes
+    planar_batches = 0
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     @torch.inference_mode()
-    def predict_batch_device(self, images: np.ndarray,
+    def predict_batch_device(self, images,
                              quantize_int8: bool = False,
                              argmax_u8: bool = False) -> Optional[torch.Tensor]:
-        """(B,H,W,C) raw tile values → device (B,n_out,H,W) probabilities
-        (or the finished forms of ``finish_probs``; None on a spatial rank
-        other than 0). Tiles cross to the device in their storage dtype;
-        the float cast and scaling run there."""
+        """(B,H,W,C) raw tile values (numpy, any strides, or a CPU tensor)
+        → device (B,n_out,H,W) probabilities (or the finished forms of
+        ``finish_probs``; None on a spatial rank other than 0). Tiles cross
+        to the device in their storage dtype and their host byte order
+        (``stage_batch``); in ``serve.h2d`` the copy is queued and the
+        interleave to the contiguous (B,H,W,C) tile ``_forward`` takes is
+        issued on the device, outside the forward's span; the float cast
+        and scaling run there too."""
         with self.timer.phase("serve.h2d"):
-            x = torch.from_numpy(np.ascontiguousarray(images))
+            x = stage_batch(images, self.device)
+            if not x.is_contiguous():
+                self.planar_batches += 1
             # from pinned memory the copy is queued behind earlier work
-            # instead of waiting for it, as a pageable copy does
-            if self.device.type == "cuda":
-                x = x.pin_memory().to(self.device, non_blocking=True)
+            # instead of waiting for it, as a pageable copy does; the same
+            # dense strides on both sides make it one memcpy
+            x = x.to(self.device, non_blocking=True).contiguous()
         with self.timer.phase("serve.forward"):
             self._forwards.start()
             out = self._forward(x)
@@ -225,10 +277,11 @@ class Predictor(BatchPredictor):
     mosaic's adds (``blend_count`` launches on the card), the band's rows
     and its batches that span two window rows, the finalize's seconds
     (device time on the card), the host's seconds reading the scene and
-    writing the output, the scene's seconds, and ``host_s``: the host
-    seconds of each of the serve loop's phases (``serve.*``), summed over
-    the scene. ``timer`` holds the phases of the scene being served (the
-    last one after it).
+    writing the output, the scene's seconds, ``planar_batches`` (its
+    batches interleaved on the device, ``BatchPredictor``) and ``host_s``:
+    the host seconds of each of the serve loop's phases (``serve.*``),
+    summed over the scene. ``timer`` holds the phases of the scene being
+    served (the last one after it).
 
     ``spatial`` = S > 1: this process is one of a process group of
     exactly S ranks (``ValueError``, naming ``parallel.mesh.launch``,
@@ -398,10 +451,10 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
     finalized on the device, copied to pinned host memory behind an event,
     and handed to ``emit`` as a numpy array ((n, W), or (C, n, W) for
     ``all_classes``) once the next finalize is queued. ``read_rows(r0, r1)``
-    gives scene rows as (rows, W, C); a thread calls it and stacks each
-    batch ``READ_AHEAD`` batches ahead of the forward. Fills ``record``;
-    returns the output's nodata (None on a spatial rank other than 0,
-    ``_forwards_only``)."""
+    gives scene rows as (rows, W, C); a thread calls it and gathers each
+    batch into a ``host_batch`` block ``READ_AHEAD`` batches ahead of the
+    forward. Fills ``record``; returns the output's nodata (None on a
+    spatial rank other than 0, ``_forwards_only``)."""
     timer = predictor.timer
     with timer.phase("serve.plan"):
         windows = generate_windows(height, width, patch, patch_overlap)
@@ -415,11 +468,8 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
         r0 = chunk[0].y
         rows = read_rows(r0, chunk[-1].y + chunk[-1].h)
         with timer.phase("serve.stack"):
-            batch = np.stack([rows[win.y - r0:win.y - r0 + win.h, win.x:win.x + win.w]
-                              for win in chunk])
-            if len(chunk) < bs:
-                batch = np.concatenate([batch, np.repeat(batch[-1:], bs - len(chunk), 0)])
-        return batch
+            return host_batch([rows[win.y - r0:win.y - r0 + win.h, win.x:win.x + win.w]
+                               for win in chunk], bs, predictor.device)
 
     if _forwards_only(predictor, _read_ahead(batches, load, timer)):
         return None
@@ -465,10 +515,11 @@ def _serve_banded(predictor: Predictor, height: int, width: int, patch: int,
 def _serve_full(predictor: Predictor, hwc: np.ndarray, patch: int,
                 patch_overlap: float, mode: dict, record: dict):
     """The whole-scene tier: windows in ``generate_windows``' order, in
-    batches of ``predictor.batch_size`` (the last padded by repeating its
-    final window), into one ``DeviceMosaic``, finalized on the device.
-    Returns (output, nodata) on the host; (None, None) on a spatial rank
-    other than 0 (``_forwards_only``)."""
+    batches of ``predictor.batch_size`` (each gathered into a ``host_batch``
+    block, the last padded by repeating its final window), into one
+    ``DeviceMosaic``, finalized on the device. Returns (output, nodata) on
+    the host; (None, None) on a spatial rank other than 0
+    (``_forwards_only``)."""
     timer = predictor.timer
     with timer.phase("serve.plan"):
         h, w = hwc.shape[:2]
@@ -479,11 +530,7 @@ def _serve_full(predictor: Predictor, hwc: np.ndarray, patch: int,
 
     def batch_of(chunk):
         with timer.phase("serve.stack"):
-            batch = np.stack([hwc[win.indices()] for win in chunk])
-            if len(chunk) < bs:
-                batch = np.concatenate(
-                    [batch, np.repeat(batch[-1:], bs - len(chunk), axis=0)], axis=0)
-        return batch
+            return host_batch([hwc[win.indices()] for win in chunk], bs, predictor.device)
 
     if _forwards_only(predictor, map(batch_of, chunks)):
         return None, None
@@ -541,7 +588,7 @@ def predict_raster_streamed(
                               dtype=dtype, tta=tta, spatial=spatial)
     regression = predictor.regression or regression
     timer = predictor.timer = StepTimer()
-    t0 = time.perf_counter()
+    t0, planar0 = time.perf_counter(), predictor.planar_batches
     with timer.phase("serve.plan"):
         info = tiff.read_info(raster_path)
         patch = int(patch_size or predictor.manifest.get("patch_size", 400))
@@ -584,6 +631,7 @@ def predict_raster_streamed(
                     writer.close()  # the IFD, after the rows
     finally:
         rows.close()
+    record["planar_batches"] = predictor.planar_batches - planar0
     record["seconds"] = time.perf_counter() - t0
     record["host_s"] = timer.totals()
     return str(output_path)
@@ -636,7 +684,7 @@ def predict_raster(
     _check_spatial(predictor, spatial, patch)
 
     timer = predictor.timer = StepTimer()
-    t0 = time.perf_counter()
+    t0, planar0 = time.perf_counter(), predictor.planar_batches
     with timer.phase("serve.plan"):
         info0 = tiff.read_info(raster_path)
         n_out = int(predictor.manifest.get("n_out", 2))
@@ -701,6 +749,7 @@ def predict_raster(
                 write_raster(output_path, out, transform=scene.transform,
                              crs=scene.crs, nodata=nodata, compress=out_compress)
             record["write_s"] = time.perf_counter() - t1
+    record["planar_batches"] = predictor.planar_batches - planar0
     record["seconds"] = time.perf_counter() - t0
     record["host_s"] = timer.totals()
     return out, scene.transform, scene.crs
